@@ -1,0 +1,416 @@
+"""TTSEngine for the port: bucketed batch synthesis and streaming on one CUDA device.
+
+Counterpart of `gonova_tts_tpu/engine/engine.py` `TTSEngine`, with the same public
+surface (`load`, `warmup`, `synthesize_batch`, `synthesize_stream`, `health_check`,
+`get_stats`) and the same dispatch rules:
+
+  * token and batch buckets, so every device pass has one of a few shapes;
+  * one-graph (`tts.synthesize`) or two-stage dispatch (`encode_acoustic`, one
+    [B]-int32 readback of the frame counts, then `decode_vocode` at the smallest
+    configured frame bucket covering `total_frames.max() + stream_context_frames`);
+    `two_stage_batch="auto"` picks two-stage when that readback is under the
+    configured threshold;
+  * PCM16 transfer: the device packs `clip(wav * 32767, ±32767)` with a
+    truncating int16 cast, the host unpacks `/ 32768`;
+  * streaming by context-padded vocoder windows that reproduce the one-shot audio.
+
+PyTorch runs eagerly, so there is no compile cache; `warmup` runs the warmup
+shapes once. Data-parallel serving and `embed_voice` are not ported yet
+(ROADMAP.md); a speaker embedding can still be passed in.
+"""
+
+from __future__ import annotations
+
+import logging
+import threading
+import time
+from contextlib import contextmanager
+from typing import Iterator, List, Optional, Sequence
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..config import Config
+from ..device import resolve_device
+from ..models import params as params_mod
+from ..models import tts
+from ..text import batch_to_bucket, pick_bucket, segment_text, text_to_ids
+from ..utils import Timers
+
+logger = logging.getLogger("gonova_tts_tpu_torch.engine")
+
+
+def i16_to_f32(pcm: np.ndarray) -> np.ndarray:
+    """Host unpack of the device's PCM16 transfer."""
+    return np.asarray(pcm, np.int16).astype(np.float32) / 32768.0
+
+
+class TTSEngine:
+    def __init__(self, config: Optional[Config] = None, seed: int = 0, device=None):
+        self.config = config or Config()
+        self.mcfg = self.config.model
+        self.ecfg = self.config.engine
+        self.device = resolve_device(device if device is not None else self.mcfg.device)
+        if self.ecfg.acoustic_pallas and not self.mcfg.acoustic_pallas and self.device.type == "cuda":
+            # Serving on the card: run the acoustic stacks through the fused kernel
+            # (inference only; a trainer builds its own ModelConfig).
+            self.mcfg = self.mcfg.model_copy(update={"acoustic_pallas": True})
+        self.seed = seed
+        self.params: Optional[tts.TTS] = None
+        self.is_loaded = False
+        self.hop = self.mcfg.hop_length
+        self.sample_rate = self.mcfg.sample_rate
+        self.compute_dtype = (
+            torch.bfloat16 if self.mcfg.compute_dtype == "bfloat16" else torch.float32
+        )
+        self.timers = Timers()
+        self._lock = threading.Lock()  # device work is serialized per engine
+        self._stats_lock = threading.Lock()
+        self._busy_since: float = 0.0
+        self.stats = {
+            "syntheses": 0,
+            "total_latency": 0.0,
+            "first_chunk_latency": 0.0,
+            "errors": 0,
+            "batches": 0,
+            "batched_requests": 0,
+            "compiles": 0,  # distinct device shapes run (no compile step in eager PyTorch)
+            "real_tokens": 0,
+            "padded_tokens": 0,
+            "vocode_frames_executed": 0,
+            "vocode_frames_worstcase": 0,
+            "truncated_sentences": 0,
+        }
+        self._vocode_shapes_seen: set = set()
+        self._auto_two_stage = False
+
+    @contextmanager
+    def _device_section(self):
+        """Device-lock holder that timestamps itself, so health_check can tell busy
+        from wedged."""
+        with self._lock:
+            self._busy_since = time.time()
+            try:
+                yield
+            finally:
+                self._busy_since = 0.0
+
+    # ------------------------------------------------------------ loading
+
+    def load(self, warmup: bool = True) -> None:
+        """Restore (`model.model_path`, a `.npz`) or seed-initialize the weights,
+        resolve the two-stage mode, then optionally warm up."""
+        t0 = time.time()
+        if self.mcfg.model_path:
+            self.params, self.mcfg = params_mod.load_checkpoint(
+                self.mcfg.model_path, self.mcfg, self.device
+            )
+            logger.info("params restored from %s", self.mcfg.model_path)
+        else:
+            g = torch.Generator().manual_seed(self.seed)
+            self.params = tts.TTS(self.mcfg, g).to(self.device)
+            logger.info("params initialized, seed %d", self.seed)
+        self.params.eval()
+
+        self._auto_two_stage = False
+        if self.ecfg.two_stage_batch == "auto":
+            ms = self._measure_readback_ms()
+            self._auto_two_stage = ms < self.ecfg.two_stage_readback_threshold_ms
+            logger.info(
+                "two_stage auto: readback %.3f ms, threshold %.3f ms, enabled %s",
+                ms, self.ecfg.two_stage_readback_threshold_ms, self._auto_two_stage,
+            )
+        self.is_loaded = True
+        if warmup:
+            self.warmup()
+        logger.info("engine loaded in %.2f s", time.time() - t0)
+
+    @property
+    def two_stage_enabled(self) -> bool:
+        mode = self.ecfg.two_stage_batch
+        if mode == "auto":
+            return self._auto_two_stage
+        return bool(mode)
+
+    def _measure_readback_ms(self) -> float:
+        """Median wall time (ms) of one [B]-int32 device op plus its synchronized
+        device→host copy: the readback the two-stage dispatch adds per batch."""
+        b = max(self.ecfg.batch_buckets or [16])
+        base = torch.arange(b, dtype=torch.int32, device=self.device)
+        (base + 0).cpu()
+        times = []
+        for i in range(1, 6):
+            t0 = time.perf_counter()
+            (base + i).cpu()
+            times.append(time.perf_counter() - t0)
+        return float(np.median(times) * 1e3)
+
+    # ------------------------------------------------------------ device stages
+
+    def _pack(self, wav: torch.Tensor) -> torch.Tensor:
+        if self.ecfg.transfer_dtype == "int16":
+            return torch.clamp(wav * 32767.0, -32767.0, 32767.0).to(torch.int16)
+        return wav
+
+    def _unpack(self, audio: torch.Tensor) -> np.ndarray:
+        host = audio.cpu().numpy()
+        return i16_to_f32(host) if self.ecfg.transfer_dtype == "int16" else host.astype(np.float32)
+
+    def _tensors(self, tokens, mask, spk, exagg):
+        dev = self.device
+        return (
+            torch.as_tensor(tokens, device=dev), torch.as_tensor(mask, device=dev),
+            torch.as_tensor(spk, device=dev), torch.as_tensor(exagg, device=dev),
+        )
+
+    def warmup(self) -> None:
+        """Run each configured (batch, token-bucket) shape once — in two-stage mode
+        encode plus decode_vocode at every frame bucket the shape can dispatch — and
+        the streaming window shape."""
+        dtype = self.compute_dtype
+        with torch.inference_mode():
+            for batch, bucket in self.ecfg.warmup_shapes:
+                t0 = time.time()
+                args = self._tensors(
+                    np.zeros((batch, bucket), np.int32), np.ones((batch, bucket), np.float32),
+                    np.zeros((batch, self.mcfg.speaker_dim), np.float32), np.zeros((batch,), np.float32),
+                )
+                if self.two_stage_enabled:
+                    e = tts.encode_acoustic(self.params, *args, self.mcfg, dtype)
+                    e["total_frames"].cpu()
+                    self.stats["compiles"] += 1
+                    t_full = bucket * self.mcfg.max_frames_per_token
+                    fbs = [x for x in self.ecfg.vocode_frame_buckets if x < t_full]
+                    for fb in fbs + [t_full]:
+                        out = tts.decode_vocode(
+                            self.params, e["enc"], e["spk"], e["durations"], args[1], fb,
+                            self.mcfg, dtype, local_attention_from=t_full,
+                        )
+                        out["total_samples"].cpu()
+                        self._vocode_shapes_seen.add((batch, bucket, fb))
+                        self.stats["compiles"] += 1
+                else:
+                    tts.synthesize(self.params, *args, self.mcfg, dtype)["total_samples"].cpu()
+                    self.stats["compiles"] += 1
+                logger.info("warmup batch %d bucket %d: %.2f s", batch, bucket, time.time() - t0)
+            stride = self.ecfg.stream_chunk_frames
+            ctx = min(self.ecfg.stream_context_frames, stride)
+            rf_exact = 3 * (self.mcfg.vocos_layers + 1) + 2
+            if ctx < rf_exact:
+                logger.warning(
+                    "stream context %d is below the exactness bound %d (configured %d)",
+                    ctx, rf_exact, self.ecfg.stream_context_frames,
+                )
+            mel = torch.zeros((1, stride + 2 * ctx, self.mcfg.n_mels), dtype=dtype, device=self.device)
+            self._pack(tts.vocode(self.params, mel, self.mcfg, dtype)).cpu()
+            self.stats["compiles"] += 1
+
+    def default_speaker(self) -> np.ndarray:
+        return np.zeros((self.mcfg.speaker_dim,), np.float32)
+
+    # ------------------------------------------------------------ batch synthesis
+
+    def synthesize_batch(
+        self,
+        texts: Sequence[str],
+        speakers: Optional[Sequence[np.ndarray]] = None,
+        exaggerations: Optional[Sequence[float]] = None,
+        id_lists: Optional[Sequence[Sequence[int]]] = None,
+    ) -> List[np.ndarray]:
+        """One chunk of text per request in a single device pass; one float32
+        waveform per input. `id_lists` takes precomputed token ids."""
+        if not self.is_loaded:
+            raise RuntimeError("Engine not loaded. Call load() first")
+        if not texts:
+            return []
+        t0 = time.time()
+        b = len(texts)
+        if id_lists is None:
+            id_lists = [text_to_ids(t) for t in texts]
+        elif len(id_lists) != b:
+            raise ValueError(f"{len(id_lists)} id lists for {b} texts")
+        tokens_np, lengths, bucket = batch_to_bucket(id_lists, self.ecfg.token_buckets)
+        truncated = sum(len(ids) > bucket for ids in id_lists)
+        if truncated:
+            with self._stats_lock:
+                self.stats["truncated_sentences"] += truncated
+            logger.warning("%d token sequences cut to bucket %d", truncated, bucket)
+        batch_bucket = pick_bucket(b, self.ecfg.batch_buckets)
+        if b > batch_bucket:
+            logger.warning("batch %d exceeds the largest bucket %d", b, batch_bucket)
+            batch_bucket = b
+
+        tokens = np.zeros((batch_bucket, bucket), np.int32)
+        tokens[:b] = tokens_np
+        all_lengths = np.concatenate([lengths, np.zeros(batch_bucket - b, np.int32)])
+        mask = (np.arange(bucket)[None, :] < all_lengths[:, None]).astype(np.float32)
+        spk = np.zeros((batch_bucket, self.mcfg.speaker_dim), np.float32)
+        if speakers is not None:
+            for i, s in enumerate(speakers):
+                if s is not None:
+                    spk[i] = s
+        exagg = np.full((batch_bucket,), 0.5, np.float32)  # the streaming/reference default
+        if exaggerations is not None:
+            exagg[:b] = np.asarray(exaggerations, np.float32)
+
+        dtype = self.compute_dtype
+        with self._device_section(), self.timers.track("synth_batch_device"), torch.inference_mode():
+            args = self._tensors(tokens, mask, spk, exagg)
+            if self.two_stage_enabled:
+                e = tts.encode_acoustic(self.params, *args, self.mcfg, dtype)
+                total_frames = e["total_frames"].cpu().numpy()  # the one [B] readback
+                t_full = int(bucket * self.mcfg.max_frames_per_token)
+                need = int(total_frames.max()) + self.ecfg.stream_context_frames
+                fb = min((x for x in self.ecfg.vocode_frame_buckets if x >= need), default=t_full)
+                fb = min(fb, t_full)
+                if (batch_bucket, bucket, fb) not in self._vocode_shapes_seen:
+                    self._vocode_shapes_seen.add((batch_bucket, bucket, fb))
+                    self.stats["compiles"] += 1
+                out = tts.decode_vocode(
+                    self.params, e["enc"], e["spk"], e["durations"], args[1], fb, self.mcfg,
+                    dtype, local_attention_from=t_full,
+                )
+                audio = self._unpack(self._pack(out["audio"]))
+                total = total_frames * self.hop
+                with self._stats_lock:
+                    self.stats["vocode_frames_executed"] += int(fb * batch_bucket)
+                    self.stats["vocode_frames_worstcase"] += int(t_full * batch_bucket)
+            else:
+                out = tts.synthesize(self.params, *args, self.mcfg, dtype)
+                audio = self._unpack(self._pack(out["audio"]))
+                total = out["total_samples"].cpu().numpy()
+
+        results = [audio[i, : int(total[i])].astype(np.float32) for i in range(b)]
+        dt = time.time() - t0
+        with self._stats_lock:
+            self.stats["batches"] += 1
+            self.stats["batched_requests"] += b
+            self.stats["syntheses"] += b
+            self.stats["total_latency"] += dt
+            self.stats["real_tokens"] += int(np.sum(lengths))
+            self.stats["padded_tokens"] += int(batch_bucket * bucket)
+        return results
+
+    # ------------------------------------------------------------ streaming synthesis
+
+    def synthesize_stream(
+        self, text: str, speaker: Optional[np.ndarray] = None, exaggeration: float = 0.5
+    ) -> Iterator[np.ndarray]:
+        """Generator: sentences → acoustic pass → windowed vocoding. Yields float32
+        audio chunks; first audio follows one acoustic pass and one window."""
+        if not self.is_loaded:
+            raise RuntimeError("Engine not loaded. Call load() first")
+        t0 = time.time()
+        first = True
+        try:
+            for sentence in segment_text(text):
+                for chunk in self._stream_sentence(sentence, speaker, exaggeration):
+                    if first:
+                        with self._stats_lock:
+                            self.stats["first_chunk_latency"] += time.time() - t0
+                        first = False
+                    yield chunk
+            with self._stats_lock:
+                self.stats["syntheses"] += 1
+                self.stats["total_latency"] += time.time() - t0
+        except Exception:
+            with self._stats_lock:
+                self.stats["errors"] += 1
+            raise
+
+    def _stream_sentence(
+        self, sentence: str, speaker: Optional[np.ndarray], exaggeration: float
+    ) -> Iterator[np.ndarray]:
+        ids = text_to_ids(sentence)
+        bucket = pick_bucket(len(ids), self.ecfg.token_buckets)
+        tokens = np.zeros((1, bucket), np.int32)
+        tokens[0, : min(len(ids), bucket)] = ids[:bucket]
+        mask = (np.arange(bucket)[None, :] < min(len(ids), bucket)).astype(np.float32)
+        spk = np.zeros((1, self.mcfg.speaker_dim), np.float32)
+        if speaker is not None:
+            spk[0] = speaker
+        exagg = np.asarray([exaggeration], np.float32)
+        dtype = self.compute_dtype
+
+        with self._device_section(), self.timers.track("acoustic_device"), torch.inference_mode():
+            ac = tts.acoustic_mel(self.params, *self._tensors(tokens, mask, spk, exagg), self.mcfg, dtype)
+            mel = ac["mel"]
+            total_frames = int(ac["total_frames"][0])
+        if total_frames <= 0:
+            return
+
+        stride = self.ecfg.stream_chunk_frames
+        ctx = min(self.ecfg.stream_context_frames, stride)  # window starts stay >= 0
+        w = stride + 2 * ctx
+        hop = self.hop
+        total_samples = total_frames * hop
+        # Window 0 starts at frame 0 (no synthetic left context); window k >= 1 takes
+        # ctx real frames of left context. The right pad covers the last window's
+        # overrun with zero frames, which the one-shot pass also sees.
+        n_windows = -(-total_frames // stride)
+        mel = F.pad(mel, (0, 0, 0, stride + 2 * ctx))
+        emitted = 0
+        for k in range(n_windows):
+            start = 0 if k == 0 else k * stride - ctx
+            lead = 0 if k == 0 else ctx
+            window = mel[:, start : start + w]
+            with self._device_section(), self.timers.track("vocode_window_device"), torch.inference_mode():
+                wav = self._unpack(self._pack(tts.vocode(self.params, window, self.mcfg, dtype)))[0]
+            body = wav[lead * hop : (lead + stride) * hop]
+            chunk = body[: max(0, total_samples - emitted)]
+            if len(chunk):
+                emitted += len(chunk)
+                yield chunk.astype(np.float32)
+            if emitted >= total_samples:
+                break
+
+    # ------------------------------------------------------------ health
+
+    def health_check(self, deadline_s: float = 5.0, stall_after_s: float = 300.0) -> dict:
+        """Device liveness probe: one small op end to end, with a deadline; a device
+        section held past `stall_after_s` reports degraded."""
+        if not self.is_loaded:
+            return {"status": "unloaded"}
+        if not self._lock.acquire(blocking=False):
+            since = self._busy_since
+            busy_for = (time.time() - since) if since else 0.0
+            if busy_for > stall_after_s:
+                return {"status": "degraded", "reason": "device section stalled", "busy_for_s": round(busy_for, 1)}
+            return {"status": "ok", "note": "busy serving"}
+        t0 = time.time()
+        try:
+            val = float((torch.ones((8, 128), device=self.device) * 2.0 + 1.0).sum().item())
+            latency = time.time() - t0
+            if latency > deadline_s:
+                return {"status": "degraded", "probe_latency_s": round(latency, 3)}
+            if not np.isfinite(val):
+                return {"status": "unhealthy", "reason": "non-finite device output"}
+            return {"status": "ok", "probe_latency_s": round(latency, 3)}
+        except RuntimeError as e:  # a device fault surfaces as a RuntimeError
+            return {"status": "unhealthy", "reason": str(e)}
+        finally:
+            self._lock.release()
+
+    # ------------------------------------------------------------ stats / misc
+
+    def get_stats(self) -> dict:
+        stats = dict(self.stats)
+        n = stats["syntheses"]
+        stats["avg_latency"] = stats["total_latency"] / n if n else 0.0
+        stats["avg_first_chunk"] = stats["first_chunk_latency"] / n if n else 0.0
+        stats["compiled_shapes"] = self.stats["compiles"]
+        stats["padding_efficiency"] = (
+            round(self.stats["real_tokens"] / self.stats["padded_tokens"], 4)
+            if self.stats["padded_tokens"] else 1.0
+        )
+        stats["timers"] = self.timers.summary()
+        stats["two_stage_dispatch"] = self.two_stage_enabled
+        from ..text import g2p
+
+        stats["g2p_tiers"] = g2p.get_tier_counts()
+        return stats
+
+    def cleanup(self) -> None:
+        self.params = None
+        self.is_loaded = False

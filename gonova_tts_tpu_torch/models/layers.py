@@ -1,0 +1,263 @@
+"""Shared neural layers: plain PyTorch functions over parameter trees.
+
+Counterpart of `gonova_tts_tpu/models/layers.py`. Parameters live in `Tree`
+modules whose children are addressed like the JAX parameter dicts
+(`p["attn"]["q"]["w"]`), so every function here reads like its JAX twin and
+also takes a plain nested dict of tensors. Layouts are the JAX ones: activations
+`[B, T, C]`, dense `[in, out]`, conv `[k, C_in, C_out]`, depthwise `[k, C]`.
+
+Initializers take an explicit `torch.Generator`; their distributions mirror the
+JAX initializers (the numbers differ: parity tests load one JAX tree into both).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Mapping, Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+NEG = -1e9
+
+
+class Tree(nn.Module):
+    """An `nn.Module` addressed like a JAX parameter dict: `tree["key"]` is the
+    child module or parameter registered under that name."""
+
+    def __getitem__(self, key: str):
+        return getattr(self, key)
+
+
+def leaf(**tensors: torch.Tensor) -> Tree:
+    """A tree node holding parameters only (a dense, conv or LayerNorm)."""
+    node = Tree()
+    for name, value in tensors.items():
+        node.register_parameter(name, nn.Parameter(value, requires_grad=False))
+    return node
+
+
+def group(**children) -> Tree:
+    node = Tree()
+    for name, child in children.items():
+        node.add_module(name, child)
+    return node
+
+
+# ---------------------------------------------------------------- init helpers
+
+
+def _normal(g: torch.Generator, shape, scale: float) -> torch.Tensor:
+    return torch.randn(shape, generator=g, dtype=torch.float32) * scale
+
+
+def dense_init(g: torch.Generator, in_dim: int, out_dim: int, scale: Optional[float] = None) -> Tree:
+    if scale is None:
+        scale = math.sqrt(2.0 / (in_dim + out_dim))  # xavier
+    return leaf(w=_normal(g, (in_dim, out_dim), scale), b=torch.zeros(out_dim))
+
+
+def conv1d_init(
+    g: torch.Generator, in_ch: int, out_ch: int, kernel: int, scale: Optional[float] = None
+) -> Tree:
+    if scale is None:
+        scale = math.sqrt(2.0 / (kernel * in_ch + out_ch))
+    return leaf(w=_normal(g, (kernel, in_ch, out_ch), scale), b=torch.zeros(out_ch))
+
+
+def layernorm_init(dim: int) -> Tree:
+    return leaf(g=torch.ones(dim), b=torch.zeros(dim))
+
+
+def embedding_init(g: torch.Generator, vocab: int, dim: int) -> Tree:
+    return leaf(table=_normal(g, (vocab, dim), 0.02))
+
+
+# ---------------------------------------------------------------- apply fns
+
+
+def dense(p: Mapping, x: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
+    return x.to(dtype) @ p["w"].to(dtype) + p["b"].to(dtype)
+
+
+def embedding(p: Mapping, ids: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
+    return p["table"].to(dtype)[ids]
+
+
+def layernorm(p: Mapping, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """f32 statistics with the population variance, whatever the input dtype."""
+    xf = x.float()
+    mean = xf.mean(-1, keepdim=True)
+    var = xf.var(-1, keepdim=True, unbiased=False)
+    return ((xf - mean) * torch.rsqrt(var + eps) * p["g"] + p["b"]).to(x.dtype)
+
+
+def conv1d(p: Mapping, x: torch.Tensor, dtype=torch.float32, groups: int = 1) -> torch.Tensor:
+    """Stride-1 SAME conv. x: [B, T, C_in] → [B, T, C_out]; weight [k, C_in//groups, C_out].
+
+    Odd kernels only: SAME padding is then symmetric, (k-1)/2 each side."""
+    k = p["w"].shape[0]
+    if k % 2 != 1:
+        raise ValueError(f"conv1d takes odd kernels (SAME padding), got k={k}")
+    w = p["w"].to(dtype).permute(2, 1, 0)  # [C_out, C_in/groups, k]
+    y = F.conv1d(x.to(dtype).transpose(1, 2), w, padding=k // 2, groups=groups)
+    return y.transpose(1, 2) + p["b"].to(dtype)
+
+
+def sinusoidal_positions(length: int, dim: int, dtype=np.float32) -> np.ndarray:
+    """Standard transformer sinusoidal position table [length, dim] (host-computed)."""
+    pos = np.arange(length)[:, None].astype(np.float64)
+    i = np.arange(dim // 2)[None, :].astype(np.float64)
+    angles = pos / np.power(10000.0, 2 * i / dim)
+    table = np.zeros((length, dim), dtype=np.float64)
+    table[:, 0::2] = np.sin(angles)
+    table[:, 1::2] = np.cos(angles)
+    return table.astype(dtype)
+
+
+# ---------------------------------------------------------------- attention
+
+
+def mha_init(g: torch.Generator, dim: int) -> Tree:
+    return group(**{k: dense_init(g, dim, dim) for k in ("q", "k", "v", "o")})
+
+
+def mha(
+    p: Mapping, x: torch.Tensor, n_heads: int, mask: Optional[torch.Tensor] = None,
+    dtype=torch.float32,
+) -> torch.Tensor:
+    """Self-attention. x: [B, T, D]; mask: [B, T] (1 = valid), a -1e9 key bias."""
+    b, t, d = x.shape
+    dh = d // n_heads
+    q = dense(p["q"], x, dtype).reshape(b, t, n_heads, dh)
+    k = dense(p["k"], x, dtype).reshape(b, t, n_heads, dh)
+    v = dense(p["v"], x, dtype).reshape(b, t, n_heads, dh)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) / math.sqrt(dh)
+    if mask is not None:
+        logits = logits + torch.where(mask[:, None, None, :] != 0, 0.0, NEG)
+    attn = torch.softmax(logits, dim=-1).to(dtype)
+    out = torch.einsum("bhqk,bkhd->bqhd", attn, v)
+    return dense(p["o"], out.reshape(b, t, d), dtype)
+
+
+def with_neighbors(arr: torch.Tensor) -> torch.Tensor:
+    """[B, nb, w, ...] → [B, nb, 3w, ...]: previous, own and next block, zero-edged."""
+    zero = torch.zeros_like(arr[:, :1])
+    prev = torch.cat([zero, arr[:, :-1]], dim=1)
+    nxt = torch.cat([arr[:, 1:], zero], dim=1)
+    return torch.cat([prev, arr, nxt], dim=2)
+
+
+def local_mha(
+    p: Mapping,
+    x: torch.Tensor,
+    n_heads: int,
+    window: int,
+    mask: Optional[torch.Tensor] = None,
+    dtype=torch.float32,
+) -> torch.Tensor:
+    """Blocked local self-attention: each block of `window` queries attends to its
+    own block and both neighbours (span 3*window). Equals full attention when
+    T <= 2*window; in (2w, 3w] the two differ. x: [B, T, D] with T % window == 0."""
+    b, t, d = x.shape
+    if t % window != 0:
+        raise ValueError(f"T={t} must be a multiple of window={window}")
+    dh = d // n_heads
+    nb = t // window
+    q = dense(p["q"], x, dtype).reshape(b, nb, window, n_heads, dh)
+    k = with_neighbors(dense(p["k"], x, dtype).reshape(b, nb, window, n_heads, dh))
+    v = with_neighbors(dense(p["v"], x, dtype).reshape(b, nb, window, n_heads, dh))
+    logits = torch.einsum("bnqhd,bnkhd->bnhqk", q.float(), k.float()) / math.sqrt(dh)
+    key_mask = torch.ones((b, t), device=x.device) if mask is None else mask.float()
+    km = with_neighbors(key_mask.reshape(b, nb, window))  # [B, nb, 3w]
+    logits = logits + torch.where(km[:, :, None, None, :] != 0, 0.0, NEG)
+    attn = torch.softmax(logits, dim=-1).to(dtype)
+    out = torch.einsum("bnhqk,bnkhd->bnqhd", attn, v)
+    return dense(p["o"], out.reshape(b, t, d), dtype)
+
+
+# ---------------------------------------------------------------- transformer block
+
+
+def transformer_block_init(
+    g: torch.Generator, dim: int, n_heads: int, d_ff: int, conv_kernel: int = 3
+) -> Tree:
+    return group(
+        ln1=layernorm_init(dim),
+        attn=mha_init(g, dim),
+        ln2=layernorm_init(dim),
+        ff1=conv1d_init(g, dim, d_ff, conv_kernel),
+        ff2=conv1d_init(g, d_ff, dim, conv_kernel),
+    )
+
+
+def uses_local_attention(window: Optional[int], t: int) -> bool:
+    """Local attention only when 2*window < T: for T <= 2w block-local equals full
+    attention, and in (2w, 3w] the two differ, so the choice must be exactly this."""
+    return window is not None and 2 * window < t
+
+
+def transformer_block(
+    p: Mapping, x: torch.Tensor, n_heads: int, mask: Optional[torch.Tensor] = None,
+    dtype=torch.float32, attention_window: Optional[int] = None,
+) -> torch.Tensor:
+    """Pre-LN block; `mask` [B, T] zeroes padded positions between sublayers."""
+    mask_f = None if mask is None else mask[..., None].to(x.dtype)
+    normed = layernorm(p["ln1"], x)
+    if uses_local_attention(attention_window, x.shape[1]):
+        attended = local_mha(p["attn"], normed, n_heads, attention_window, mask, dtype)
+    else:
+        attended = mha(p["attn"], normed, n_heads, mask, dtype)
+    h = x + attended
+    if mask_f is not None:
+        h = h * mask_f
+    y = layernorm(p["ln2"], h)
+    y = torch.relu(conv1d(p["ff1"], y, dtype=dtype))
+    y = conv1d(p["ff2"], y, dtype=dtype)
+    out = h + y
+    if mask_f is not None:
+        out = out * mask_f
+    return out
+
+
+class TransformerStack(Tree):
+    """`{"blocks": [...], "ln_out": ...}`: L pre-LN blocks and a final LayerNorm."""
+
+    def __init__(
+        self, g: torch.Generator, n_layers: int, dim: int, n_heads: int, d_ff: int,
+        conv_kernel: int = 3,
+    ):
+        super().__init__()
+        self.n_heads = n_heads
+        self.blocks = nn.ModuleList(
+            transformer_block_init(g, dim, n_heads, d_ff, conv_kernel) for _ in range(n_layers)
+        )
+        self.ln_out = layernorm_init(dim)
+
+    def forward(self, x, mask=None, dtype=torch.float32, attention_window=None):
+        return transformer_stack(self, x, self.n_heads, mask, dtype, attention_window)
+
+
+def cached(node, key, build):
+    """`build()` memoized on a parameter module under `key` (plain dicts: no memo).
+
+    Kernels take weights re-laid-out (stacked over layers, cast to the compute
+    dtype); serving builds that once per (dtype, device). Parameters are frozen
+    after loading, so the memo never goes stale."""
+    if not isinstance(node, nn.Module):
+        return build()
+    memo = node.__dict__.setdefault("_derived", {})
+    if key not in memo:
+        memo[key] = build()
+    return memo[key]
+
+
+def transformer_stack(
+    p: Mapping, x: torch.Tensor, n_heads: int, mask: Optional[torch.Tensor] = None,
+    dtype=torch.float32, attention_window: Optional[int] = None,
+) -> torch.Tensor:
+    for blk in p["blocks"]:
+        x = transformer_block(blk, x, n_heads, mask, dtype, attention_window)
+    return layernorm(p["ln_out"], x)

@@ -1,0 +1,121 @@
+"""The combined TTS pipeline: acoustic model + vocoder (+ speaker encoder weights).
+
+Counterpart of `gonova_tts_tpu/models/tts.py`. `synthesize` is tokens → mel →
+waveform in one pass; `encode_acoustic` / `decode_vocode` are the engine's
+two-stage halves; `acoustic_mel` and `vocode` are the streaming stages.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping, Optional
+
+import torch
+
+from ..config import ModelConfig
+from . import acoustic, speaker, vocos
+from .layers import Tree
+
+
+def _check_family(cfg: ModelConfig) -> None:
+    if cfg.vocoder_family != "vocos":
+        raise NotImplementedError(
+            f"vocoder_family={cfg.vocoder_family!r}: the port serves the vocos family; "
+            "HiFi-GAN is queued in ROADMAP.md"
+        )
+
+
+class TTS(Tree):
+    """`{"acoustic", "vocoder", "speaker"}` — the JAX parameter tree as one module.
+    A fresh one is seeded from `g` (defaults to seed 0)."""
+
+    def __init__(self, cfg: ModelConfig, g: Optional[torch.Generator] = None):
+        super().__init__()
+        _check_family(cfg)
+        if g is None:
+            g = torch.Generator().manual_seed(0)
+        self.cfg = cfg
+        self.acoustic = acoustic.AcousticModel(cfg, g)
+        self.vocoder = vocos.Vocos(cfg, g)
+        self.speaker = speaker.init(g, cfg)
+
+    def forward(self, tokens, token_mask, spk_embedding, exaggeration, dtype=torch.float32):
+        return synthesize(self, tokens, token_mask, spk_embedding, exaggeration, self.cfg, dtype)
+
+
+def _with_audio(wav: torch.Tensor, total_frames: torch.Tensor, hop: int) -> Dict[str, torch.Tensor]:
+    total_samples = total_frames * hop
+    sample_mask = torch.arange(wav.shape[-1], device=wav.device)[None, :] < total_samples[:, None]
+    return {
+        "audio": wav * sample_mask.to(wav.dtype),
+        "sample_mask": sample_mask,
+        "total_samples": total_samples,
+    }
+
+
+def synthesize(
+    params: Mapping,
+    tokens: torch.Tensor,  # [B, L] int
+    token_mask: torch.Tensor,  # [B, L]
+    spk_embedding: torch.Tensor,  # [B, speaker_dim]
+    exaggeration: torch.Tensor,  # [B]
+    cfg: ModelConfig,
+    dtype=torch.float32,
+) -> Dict[str, torch.Tensor]:
+    """Full pipeline. Returns audio [B, T_frames * hop], sample mask, mel, frames."""
+    _check_family(cfg)
+    ac = acoustic.forward(params["acoustic"], tokens, token_mask, spk_embedding, exaggeration, cfg, dtype=dtype)
+    wav = vocos.forward(params["vocoder"], ac["mel"], cfg, dtype=dtype)
+    out = _with_audio(wav, ac["total_frames"], cfg.hop_length)
+    out.update(
+        mel=ac["mel"], frame_mask=ac["frame_mask"], total_frames=ac["total_frames"],
+        durations=ac["durations"],
+    )
+    return out
+
+
+def vocode(params: Mapping, mel: torch.Tensor, cfg: ModelConfig, dtype=torch.float32) -> torch.Tensor:
+    _check_family(cfg)
+    return vocos.forward(params["vocoder"], mel, cfg, dtype=dtype)
+
+
+def encode_acoustic(
+    params: Mapping, tokens, token_mask, spk_embedding, exaggeration, cfg: ModelConfig,
+    dtype=torch.float32,
+) -> Dict[str, torch.Tensor]:
+    """Token-domain half (acoustic.encode)."""
+    return acoustic.encode(params["acoustic"], tokens, token_mask, spk_embedding, exaggeration, cfg, dtype=dtype)
+
+
+def decode_vocode(
+    params: Mapping,
+    enc: torch.Tensor,  # [B, L, D] from encode_acoustic
+    spk: torch.Tensor,  # [B, D] from encode_acoustic
+    durations: torch.Tensor,  # [B, L] from encode_acoustic
+    token_mask: torch.Tensor,  # [B, L]
+    max_frames: int,
+    cfg: ModelConfig,
+    dtype=torch.float32,
+    local_attention_from: int = 0,
+) -> Dict[str, torch.Tensor]:
+    """Frame-domain half: length regulate + decoder + vocoder at `max_frames`.
+    Audio below each sequence's total_samples matches `synthesize` whenever
+    max_frames covers the batch and local_attention_from is the one-graph
+    frame count."""
+    _check_family(cfg)
+    d = acoustic.decode(
+        params["acoustic"], enc, spk, durations, token_mask, max_frames, cfg,
+        dtype=dtype, local_attention_from=local_attention_from or None,
+    )
+    wav = vocos.forward(params["vocoder"], d["mel"], cfg, dtype=dtype)
+    out = _with_audio(wav, d["total_frames"], cfg.hop_length)
+    del out["sample_mask"]
+    out["total_frames"] = d["total_frames"]
+    return out
+
+
+def acoustic_mel(
+    params: Mapping, tokens, token_mask, spk_embedding, exaggeration, cfg: ModelConfig,
+    dtype=torch.float32,
+) -> Dict[str, torch.Tensor]:
+    """Acoustic stage only (streaming: mel first, then windowed vocode)."""
+    return acoustic.forward(params["acoustic"], tokens, token_mask, spk_embedding, exaggeration, cfg, dtype=dtype)

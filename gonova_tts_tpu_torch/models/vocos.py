@@ -1,0 +1,123 @@
+"""NovaVocos — iSTFT-head vocoder (Vocos-class), in PyTorch.
+
+Counterpart of `gonova_tts_tpu/models/vocos.py`: mel [B, T, n_mels] → k=7 embed
+conv → L ConvNeXt blocks (depthwise k=7, LN, 512→1536→512 tanh-GELU MLP, layer
+scale) → LN → STFT head (polar or cartesian) → window-folded inverse-DFT product
+→ 4-shift overlap-add → waveform [B, T * hop].
+"""
+
+from __future__ import annotations
+
+from typing import Mapping
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..audio.stft import hann_window, idft_bases
+from ..config import ModelConfig
+from ..ops import vocos_stack as vs_op
+from . import layers
+from .layers import Tree
+
+
+def _block(g: torch.Generator, dim: int, ff: int, kernel: int) -> Tree:
+    node = layers.leaf(
+        dw=torch.randn((kernel, dim), generator=g) * (1.0 / np.sqrt(kernel)),
+        dw_b=torch.zeros(dim),
+        gamma=torch.full((dim,), 1e-2),
+    )
+    node.add_module("ln", layers.layernorm_init(dim))
+    node.add_module("pw1", layers.dense_init(g, dim, ff))
+    node.add_module("pw2", layers.dense_init(g, ff, dim))
+    return node
+
+
+def _depthwise_conv(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor, dtype) -> torch.Tensor:
+    """Depthwise SAME conv; w [k, C], x [B, T, C]."""
+    k, c = w.shape
+    y = F.conv1d(x.to(dtype).transpose(1, 2), w.to(dtype).t()[:, None, :], padding=k // 2, groups=c)
+    return y.transpose(1, 2) + b.to(dtype)
+
+
+def _block_apply(p: Mapping, x: torch.Tensor, dtype) -> torch.Tensor:
+    h = _depthwise_conv(p["dw"], p["dw_b"], x, dtype)
+    h = layers.layernorm(p["ln"], h)
+    h = layers.dense(p["pw1"], h, dtype)
+    h = F.gelu(h, approximate="tanh")  # jax.nn.gelu is the tanh form
+    h = layers.dense(p["pw2"], h, dtype)
+    return x + h * p["gamma"].to(h.dtype)
+
+
+class Vocos(Tree):
+    def __init__(self, cfg: ModelConfig, g: torch.Generator):
+        super().__init__()
+        n_bins = cfg.n_fft // 2 + 1
+        head_mult = {"polar": 2, "cartesian": 3}[cfg.vocos_head]
+        self.cfg = cfg
+        self.embed = layers.conv1d_init(g, cfg.n_mels, cfg.vocos_dim, 7)
+        self.blocks = nn.ModuleList(
+            _block(g, cfg.vocos_dim, cfg.vocos_ff, 7) for _ in range(cfg.vocos_layers)
+        )
+        self.ln_out = layers.layernorm_init(cfg.vocos_dim)
+        self.head = layers.dense_init(g, cfg.vocos_dim, head_mult * n_bins)
+
+    def forward(self, mel: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
+        return forward(self, mel, self.cfg, dtype)
+
+
+def forward(params: Mapping, mel: torch.Tensor, cfg: ModelConfig, dtype=torch.float32) -> torch.Tensor:
+    """mel [B, T, n_mels] → waveform [B, T * hop] (f32)."""
+    n_fft, hop = cfg.n_fft, cfg.hop_length
+    if n_fft != 4 * hop or cfg.win_length != n_fft:
+        raise ValueError("NovaVocos assumes 4x-overlap framing with the full n_fft Hann "
+                         "(n_fft == 4 * hop_length, win_length == n_fft)")
+    n_bins = n_fft // 2 + 1
+    t = mel.shape[1]
+
+    x = layers.conv1d(params["embed"], mel.to(dtype), dtype=dtype)
+    if cfg.vocos_pallas and t <= vs_op.MAX_T:
+        blocks = params["blocks"]
+        packed = layers.cached(
+            blocks, ("vocos_stack", dtype, x.device), lambda: vs_op.pack_params(blocks, dtype)
+        )
+        x = vs_op.vocos_stack(x, packed, bf16=(dtype == torch.bfloat16)).to(dtype)
+    else:
+        for blk in params["blocks"]:
+            x = _block_apply(blk, x, dtype)
+    x = layers.layernorm(params["ln_out"], x)
+    head = layers.dense(params["head"], x, dtype).float()
+
+    mag = torch.exp(torch.clamp(head[..., :n_bins], -14.0, 6.0))
+    if cfg.vocos_head == "cartesian":
+        xdir = head[..., n_bins : 2 * n_bins]
+        ydir = head[..., 2 * n_bins :]
+        inv = torch.rsqrt(xdir * xdir + ydir * ydir + 1e-12)
+        real, imag = mag * xdir * inv, mag * ydir * inv
+    else:
+        phase = head[..., n_bins:]
+        real, imag = mag * torch.cos(phase), mag * torch.sin(phase)
+    # The port computes the iDFT in full f32 for every istft_precision setting: a
+    # CUDA f32 matmul is exact f32 with TF32 off (device.resolve_device pins it).
+    return istft_synthesis(real, imag, n_fft, hop)
+
+
+def istft_synthesis(real: torch.Tensor, imag: torch.Tensor, n_fft: int, hop: int) -> torch.Tensor:
+    """Windowed iSTFT for 4x-overlap framing: [B, T, bins] x2 → [B, T * hop].
+
+    Inverse real DFT as one product with the synthesis window folded into the
+    bases, four shifted adds, the constant NOLA normalization 1.5 (periodic Hann
+    at 4x overlap), and a 1.5*hop lead trim aligning sample 0 with frame 0."""
+    b, t, _ = real.shape
+    icos, isin = idft_bases(n_fft)
+    bases = np.concatenate([icos, -isin], axis=0) * hann_window(n_fft)[None, :]
+    bases = torch.as_tensor(bases, device=real.device)
+    frames = torch.cat([real, imag], dim=-1) @ bases  # [B, T, n_fft]
+    segs = frames.reshape(b, t, 4, hop)
+    out = torch.zeros((b, (t + 3) * hop), device=real.device)
+    for k in range(4):
+        out[:, k * hop : (k + t) * hop] += segs[:, :, k, :].reshape(b, t * hop)
+    out = out / 1.5
+    lead = (n_fft - hop) // 2
+    return out[:, lead : lead + t * hop]

@@ -1,0 +1,40 @@
+"""Hand-written CUDA kernels for Hopper, each beside its plain PyTorch version.
+
+| wrapper | replaces (TPU Pallas kernel) | source |
+|---|---|---|
+| `transformer_stack.transformer_stack` | `gonova_tts_tpu/ops/transformer_stack_kernel.py` `transformer_stack_pallas` | `csrc/transformer_stack.cu` |
+| `vocos_stack.vocos_stack` | `gonova_tts_tpu/ops/vocos_stack_kernel.py` `vocos_stack_pallas` | `csrc/vocos_stack.cu` |
+
+A wrapper given CPU tensors runs the plain version; given CUDA tensors it
+launches the kernel (built on first use by `_build.py`) or raises. Every launch
+adds one to the wrapper's `LaunchCounter`, which is how a run shows that the
+serving path went through the kernels.
+"""
+
+from __future__ import annotations
+
+from typing import Dict
+
+
+class LaunchCounter:
+    """Number of kernel launches through one wrapper."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self.count = 0
+
+
+_COUNTERS: Dict[str, LaunchCounter] = {}
+
+
+def counter(name: str) -> LaunchCounter:
+    return _COUNTERS.setdefault(name, LaunchCounter(name))
+
+
+def launch_counts() -> Dict[str, int]:
+    return {name: c.count for name, c in _COUNTERS.items()}
+
+
+def reset_launch_counts() -> None:
+    for c in _COUNTERS.values():
+        c.count = 0

@@ -1,0 +1,105 @@
+"""Vocos ConvNeXt stack: hand-written CUDA kernel and its plain PyTorch version.
+
+Replaces `gonova_tts_tpu/ops/vocos_stack_kernel.py` `vocos_stack_pallas` (the JAX
+vocoder's block stack under `ModelConfig.vocos_pallas`). The kernel is
+`csrc/vocos_stack.cu`; its source note says what bounds it on the H100 (the two
+MLP GEMMs: compute) and what this first design does about it.
+
+`vocos_stack_plain` computes the same function in PyTorch, staged as the Pallas
+kernel stages it (f32 depthwise taps and LN, MLP products accumulated in f32,
+bf16 rounding at the same places). In f32 it equals the `vocos._block_apply` loop.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, Mapping
+
+import torch
+import torch.nn.functional as F
+
+from . import counter
+
+MAX_T = 768  # the JAX dispatch's kernel budget (vocos.forward); longer mels stay plain
+_COUNT = counter("vocos_stack")
+# vocos_stack_forward(dtype, B, T, C, F, L, act, 9 weights, 2 scratch buffers, stream)
+_SIGNATURE = [ctypes.c_int] * 6 + [ctypes.c_void_p] * 13
+
+
+def pack_params(blocks, dtype: torch.dtype) -> Dict[str, torch.Tensor]:
+    """A list of vocos block trees → per-block arrays: dw [L, 7, C] and the other
+    vectors f32, w1 [L, C, F] and w2 [L, F, C] in `dtype`."""
+    blocks = list(blocks)
+
+    def st(fn, dt=torch.float32):
+        return torch.stack([fn(b).detach() for b in blocks]).to(dt).contiguous()
+
+    return {
+        "dw": st(lambda b: b["dw"]), "dw_b": st(lambda b: b["dw_b"]),
+        "ln_g": st(lambda b: b["ln"]["g"]), "ln_b": st(lambda b: b["ln"]["b"]),
+        "w1": st(lambda b: b["pw1"]["w"], dtype), "b1": st(lambda b: b["pw1"]["b"]),
+        "w2": st(lambda b: b["pw2"]["w"], dtype), "b2": st(lambda b: b["pw2"]["b"]),
+        "gamma": st(lambda b: b["gamma"]),
+    }
+
+
+def vocos_stack_plain(x: torch.Tensor, packed: Mapping[str, torch.Tensor], bf16: bool = False) -> torch.Tensor:
+    cd = torch.bfloat16 if bf16 else torch.float32
+    c = x.shape[-1]
+    act = x.to(cd)
+    for l in range(packed["dw"].shape[0]):
+        k = packed["dw"].shape[1]
+        w = packed["dw"][l].t()[:, None, :]  # [C, 1, k]
+        acc = F.conv1d(act.float().transpose(1, 2), w, padding=k // 2, groups=c).transpose(1, 2)
+        acc = acc + packed["dw_b"][l]
+        mean = acc.mean(-1, keepdim=True)
+        var = ((acc - mean) ** 2).mean(-1, keepdim=True)
+        normed = ((acc - mean) * torch.rsqrt(var + 1e-5) * packed["ln_g"][l] + packed["ln_b"][l]).to(cd)
+        h = (normed.float() @ packed["w1"][l].float() + packed["b1"][l]).to(cd)
+        h = F.gelu(h.float(), approximate="tanh").to(cd)
+        h = h.float() @ packed["w2"][l].float() + packed["b2"][l]
+        act = act + (h * packed["gamma"][l]).to(cd)
+    return act
+
+
+def vocos_stack(x: torch.Tensor, packed: Mapping[str, torch.Tensor], bf16: bool = False) -> torch.Tensor:
+    """Fused equivalent of the `vocos._block_apply` loop over [B, T, C]; returns the
+    compute dtype. CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    if not x.is_cuda:
+        return vocos_stack_plain(x, packed, bf16)
+    return _launch(x, packed, bf16)
+
+
+def _launch(x, packed, bf16):
+    from . import _build
+
+    cd = torch.bfloat16 if bf16 else torch.float32
+    b, t, c = x.shape
+    n_layers, f = packed["w1"].shape[0], packed["w1"].shape[-1]
+    problems = []
+    if t > MAX_T:
+        problems.append(f"T={t} > MAX_T={MAX_T}")
+    if c % 16 or f % 16 or c > 1024:
+        problems.append(f"C={c} and F={f} must be multiples of 16, C <= 1024")
+    if packed["dw"].shape[1] != 7:
+        problems.append(f"depthwise kernel {packed['dw'].shape[1]} != 7")
+    if any(v.device != x.device for v in packed.values()):
+        problems.append("all inputs must be on the same CUDA device")
+    if packed["w1"].dtype != cd:
+        problems.append(f"weights packed as {packed['w1'].dtype}, compute dtype {cd}")
+    if problems:
+        raise ValueError("vocos_stack kernel: " + "; ".join(problems))
+
+    lib = _build.load("vocos_stack", {"vocos_stack_forward": _SIGNATURE})
+    act = x.to(cd, copy=True).contiguous()
+    normed = torch.empty((b * t, c), dtype=cd, device=x.device)
+    h = torch.empty((b * t, f), dtype=cd, device=x.device)
+    p = _build.ptr
+    rc = lib.vocos_stack_forward(
+        int(bf16), b, t, c, f, n_layers, p(act),
+        *(p(packed[k]) for k in ("dw", "dw_b", "ln_g", "ln_b", "w1", "b1", "w2", "b2", "gamma")),
+        p(normed), p(h), _build.stream_ptr(x.device),
+    )
+    _build.check(lib, rc, "vocos_stack kernel")
+    _COUNT.count += 1
+    return act

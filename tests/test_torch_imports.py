@@ -1,0 +1,36 @@
+"""The port stands alone: no module of gonova_tts_tpu_torch, and not chip_smoke.py,
+imports jax or anything of the JAX package gonova_tts_tpu (AST scan, so lazy
+imports inside functions count too)."""
+
+import ast
+import pathlib
+
+import pytest
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+FILES = sorted((ROOT / "gonova_tts_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FORBIDDEN = ("jax", "jaxlib", "gonova_tts_tpu", "flax", "optax", "orbax")
+
+
+def imported_modules(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+        elif isinstance(node, ast.Call) and getattr(node.func, "id", getattr(node.func, "attr", "")) in (
+            "import_module", "__import__",
+        ):
+            yield from (a.value for a in node.args if isinstance(a, ast.Constant) and isinstance(a.value, str))
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_imports(path):
+    bad = [m for m in imported_modules(path) if m.split(".")[0] in FORBIDDEN]
+    assert not bad, f"{path.name} imports {bad}"
+
+
+def test_scan_sees_the_whole_port():
+    names = {p.name for p in FILES}
+    assert {"engine.py", "transformer_stack.py", "vocos_stack.py", "neural_g2p.py", "chip_smoke.py"} <= names
