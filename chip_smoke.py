@@ -9,12 +9,19 @@ Phases; any failure exits non-zero before the final line:
   3. kernels: each hand-written kernel vs its plain PyTorch version on the card, at
      the serving path's shapes, f32 and bf16: max |error| against a stated bound,
      kernel and plain times (CUDA events), and the least time the card could take.
+     The single ConvNeXt block is also chained over the checkpoint's eight blocks,
+     with its launch count read, against the stack kernel.
   4. engine: the demo checkpoint (assets/checkpoints/demo_ema_f16.npz, full width,
      30.1 M parameters) in bf16 with both kernel switches on — batch one-graph and
      two-stage, streaming, a 128-token sentence whose decoder takes the plain
      local-attention route — with launch counts reset just before and read just
      after; then agreement checks and audio-seconds per second.
-  5. output: a `kernels` JSON line, the nvidia-smi line, then the `ok` JSON line.
+  5. voice: the cloning path through the service facade — StreamingSynthesizer,
+     VoiceManager.register_voice (assets/default_voice.wav), embed_voice_file,
+     VoiceEmbeddingCache, 48 kHz and 44.1 kHz references through
+     extract_voice_embedding, cloned speech streamed and batched (DynamicBatcher) —
+     again with launch counts reset just before and read just after.
+  6. output: a `kernels` JSON line, the nvidia-smi line, then the `ok` JSON line.
 
 Bounds (max |error| unless named):
   kernels f32: 2e-3 (summation order through up to 8 layers);
@@ -22,15 +29,22 @@ Bounds (max |error| unless named):
     carried through the later layers);
   two-stage vs one-graph, streamed vs one-shot: see ENGINE_BOUNDS;
   bf16 kernel path vs f32 plain path: relative L2 error of the audio at the same
-    durations, BF16_VS_F32_REL_L2.
+    durations, BF16_VS_F32_REL_L2;
+  log-mel kernel: |error| <= MEL_ATOL + MEL_RTOL * |plain| (f32 summation order under
+    a log; the JAX kernel test's bound);
+  ConvNeXt block chained 8 times vs the stack kernel, f32: CHAIN_VS_STACK_BOUND;
+  voice path: see VOICE_BOUNDS.
 """
 
 from __future__ import annotations
 
+import asyncio
+import base64
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 KERNEL_F32_BOUND = 1e-4
@@ -46,6 +60,20 @@ ENGINE_BOUNDS = {
     "f32_two_stage_vs_one_graph": 2.01 / 32767,
 }
 BF16_VS_F32_REL_L2 = 0.1
+MEL_ATOL, MEL_RTOL = 2e-4, 1e-4
+CHAIN_VS_STACK_BOUND = 3e-4
+VOICE_BOUNDS = {
+    # Embeddings have unit L2 norm. Kernel mel vs plain mel differ by f32 summation
+    # order (~1e-6 in the log-mel); in bf16 that can flip a rounding of the encoder's
+    # input, which three convs carry on.
+    "embedding_kernel_mel_vs_plain_mel_f32": 1e-3,
+    "embedding_kernel_mel_vs_plain_mel_bf16": 2e-2,
+    "embedding_unit_norm": 1e-3,
+    "resample_card_vs_cpu": 1e-4,  # f32 polyphase FIR, cuDNN vs CPU summation order
+    # The batcher may dispatch two-stage; the stream is one-graph acoustic + windows.
+    "cloned_batch_vs_stream": ENGINE_BOUNDS["two_stage_vs_one_graph"],
+}
+VOICE_WAV = os.path.join("assets", "default_voice.wav")
 
 H100_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # dense tensor-core bf16; f32 off the tensor cores
@@ -94,6 +122,10 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def name_of(dtype) -> str:
+    return str(dtype).split(".")[-1]
+
+
 def bound(bytes_moved: int, flops: float, dtype_name: str):
     t_bytes = bytes_moved / H100_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
@@ -134,10 +166,10 @@ def transformer_cases(model, torch, dev, rng):
                 2 * m * d * 3 * d + 4 * b * t * span * d + 2 * m * d * d + 2 * m * 3 * d * f * 2
             )
             moved = nbytes(x, mask, out, *packed.values())
-            bound_ms, bound_by = bound(moved, flops, str(dt).split(".")[-1])
+            bound_ms, bound_by = bound(moved, flops, name_of(dt))
             cases.append({
                 "case": f"{name} B={b} T={t}" + (f" w={window}" if window else ""),
-                "dtype": str(dt).split(".")[-1], "max_abs_err": err,
+                "dtype": name_of(dt), "max_abs_err": err,
                 "tolerance": KERNEL_BF16_BOUND if bf16 else KERNEL_F32_BOUND, "ok": ok,
                 "ms": cuda_ms(lambda: ts.transformer_stack(x, mask, packed, 4, window, bf16), 10),
                 "plain_ms": cuda_ms(lambda: ts.transformer_stack_plain(x, mask, packed, 4, window, bf16), 10),
@@ -164,15 +196,118 @@ def vocos_cases(model, torch, dev, rng):
             c, f, n_layers = 512, packed["w1"].shape[-1], packed["w1"].shape[0]
             flops = n_layers * b * t * (4 * c * f + 2 * 7 * c)
             moved = nbytes(x, out, *packed.values())
-            bound_ms, bound_by = bound(moved, flops, str(dt).split(".")[-1])
+            bound_ms, bound_by = bound(moved, flops, name_of(dt))
             cases.append({
-                "case": f"B={b} T={t}", "dtype": str(dt).split(".")[-1], "max_abs_err": err,
+                "case": f"B={b} T={t}", "dtype": name_of(dt), "max_abs_err": err,
                 "tolerance": KERNEL_BF16_BOUND if bf16 else KERNEL_F32_BOUND, "ok": ok,
                 "ms": cuda_ms(lambda: vs.vocos_stack(x, packed, bf16), 10),
                 "plain_ms": cuda_ms(lambda: vs.vocos_stack_plain(x, packed, bf16), 10),
                 "bound_ms": bound_ms, "bound_by": bound_by, "gflop": flops / 1e9,
             })
     return cases
+
+
+def mel_cases(torch, dev, rng):
+    """f32 only. Seeded noise [4, 32768]; the reference voice zero-padded to the
+    engine's 10 s analysis buffer [1, 239872] (a silent tail: both floors); frame
+    counts 2, 127, 128, 129; and the hop=64 framing (n_fft / hop = 16)."""
+    import numpy as np
+
+    from gonova_tts_tpu_torch.ops import mel_spectrogram as mel
+    from gonova_tts_tpu_torch.utils import read_wav
+
+    voice, sr = read_wav(VOICE_WAV)
+    if sr != 24000 or voice.ndim != 1:
+        fail(f"{VOICE_WAV}: expected 24 kHz mono, got {sr} Hz, shape {voice.shape}")
+    buf = np.zeros((1, 239872), np.float32)
+    buf[0, : len(voice)] = voice
+    noise = lambda b, t: 0.1 * rng.standard_normal((b, t)).astype(np.float32)  # noqa: E731
+    inputs = [("noise B=4 T=32768", noise(4, 32768), 256), ("voice B=1 T=239872", buf, 256)]
+    inputs += [(f"noise B=2 frames={n}", noise(2, max(n * 256, 512)), 256) for n in (2, 127, 128, 129)]
+    inputs += [("noise B=2 T=8192 hop=64", noise(2, 8192), 64)]
+    cases = []
+    for name, x_np, hop in inputs:
+        x = torch.as_tensor(x_np, device=dev)
+        out = mel.mel_spectrogram(x, hop_length=hop)
+        ref = mel.mel_spectrogram_plain(x, hop_length=hop)
+        torch.cuda.synchronize()
+        err = (out - ref).abs()
+        ok = (
+            out.shape == (x.shape[0], x.shape[1] // hop, 80) and bool(torch.isfinite(out).all())
+            and bool((err <= MEL_ATOL + MEL_RTOL * ref.abs()).all())
+        )
+        n_fft, n_bins, n_mels = 1024, 513, 80
+        frames = x.shape[0] * (x.shape[1] // hop)
+        flops = frames * (2 * 2 * n_fft * n_bins + 2 * n_bins * n_mels)
+        moved = nbytes(x, out) + 4 * (2 * n_fft * n_bins + n_bins * n_mels)
+        bound_ms, bound_by = bound(moved, flops, "float32")
+        cases.append({
+            "case": name, "dtype": "float32", "max_abs_err": float(err.max()),
+            "tolerance": f"{MEL_ATOL} + {MEL_RTOL} * |plain|", "ok": ok,
+            "ms": cuda_ms(lambda: mel.mel_spectrogram(x, hop_length=hop), 10),
+            "plain_ms": cuda_ms(lambda: mel.mel_spectrogram_plain(x, hop_length=hop), 10),
+            "bound_ms": bound_ms, "bound_by": bound_by, "gflop": flops / 1e9,
+        })
+    return cases
+
+
+def block_weights(blk):
+    return (blk["dw"], blk["dw_b"], blk["ln"]["g"], blk["ln"]["b"], blk["pw1"]["w"], blk["pw1"]["b"],
+            blk["pw2"]["w"], blk["pw2"]["b"], blk["gamma"])
+
+
+def convnext_cases(model, torch, dev, rng):
+    """The checkpoint's block 0 at B=4 T=320 and B=1 T=300, for (x f32, MLP f32),
+    (x f32, MLP bf16) and (x bf16, MLP bf16)."""
+    from gonova_tts_tpu_torch.ops import convnext_block as cb
+
+    w = block_weights(model.vocoder.blocks[0])
+    cases = []
+    for b, t in ((4, 320), (1, 300)):
+        for x_dt, bf16 in ((torch.float32, False), (torch.float32, True), (torch.bfloat16, True)):
+            x = torch.as_tensor(rng.standard_normal((b, t, 512)).astype("float32"), device=dev).to(x_dt)
+            out = cb.convnext_block(x, *w, bf16=bf16)
+            ref = cb.convnext_block_plain(x, *w, bf16=bf16)
+            torch.cuda.synchronize()
+            err = float((out.float() - ref.float()).abs().max())
+            tol = KERNEL_BF16_BOUND if bf16 else KERNEL_F32_BOUND
+            ok = out.dtype == x_dt and bool(torch.isfinite(out.float()).all()) and err <= tol
+            c, f = 512, w[4].shape[-1]
+            flops = b * t * (4 * c * f + 2 * 7 * c)
+            esz = 2 if bf16 else 4  # the MLP weights are read in the MLP dtype
+            moved = nbytes(x, out) + esz * 2 * c * f + 4 * (7 * c + 5 * c + f)
+            mlp = "bfloat16" if bf16 else "float32"
+            bound_ms, bound_by = bound(moved, flops, mlp)
+            cases.append({
+                "case": f"B={b} T={t}", "dtype": f"x {name_of(x_dt)}, mlp {mlp}", "max_abs_err": err,
+                "tolerance": tol, "ok": ok,
+                "ms": cuda_ms(lambda: cb.convnext_block(x, *w, bf16=bf16), 10),
+                "plain_ms": cuda_ms(lambda: cb.convnext_block_plain(x, *w, bf16=bf16), 10),
+                "bound_ms": bound_ms, "bound_by": bound_by, "gflop": flops / 1e9,
+            })
+    return cases
+
+
+def convnext_chain(model, torch, dev, rng):
+    """The single-block kernel's own path: the vocoder body as eight launches of
+    `convnext_block` (f32, B=4 T=320, checkpoint weights), launch count from zero,
+    against the stack kernel on the same input."""
+    from gonova_tts_tpu_torch import ops
+    from gonova_tts_tpu_torch.ops import convnext_block as cb
+    from gonova_tts_tpu_torch.ops import vocos_stack as vs
+
+    x = torch.as_tensor(rng.standard_normal((4, 320, 512)).astype("float32"), device=dev)
+    packed = vs.pack_params(model.vocoder.blocks, torch.float32)
+    ops.reset_launch_counts()
+    y = x
+    for blk in model.vocoder.blocks:
+        y = cb.convnext_block(y, *block_weights(blk), bf16=False)
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()["convnext_block"]
+    err = float((y - vs.vocos_stack(x, packed, False)).abs().max())
+    ok = launches == len(model.vocoder.blocks) and bool(torch.isfinite(y).all()) and err <= CHAIN_VS_STACK_BOUND
+    return {"case": "8 blocks chained vs vocos_stack B=4 T=320", "dtype": "float32", "max_abs_err": err,
+            "tolerance": CHAIN_VS_STACK_BOUND, "launches": launches, "ok": ok}
 
 
 # ------------------------------------------------------------------ phase 4
@@ -338,6 +473,112 @@ def profile(eng, torch, unprofiled_ms: float) -> dict:
     }
 
 
+# ------------------------------------------------------------------ phase 5
+
+
+def test_signal(np, sr: int, seconds: float, seed: int):
+    """A seeded voiced-like reference: three harmonics under a slow envelope, plus noise."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(sr * seconds)) / sr
+    tone = sum(a * np.sin(2 * np.pi * f * t) for a, f in ((0.3, 140.0), (0.15, 280.0), (0.08, 420.0)))
+    return ((0.6 + 0.4 * np.sin(2 * np.pi * 3.0 * t)) * tone + 0.02 * rng.standard_normal(t.size)).astype(np.float32)
+
+
+def run_voice(torch, np, report):
+    from gonova_tts_tpu_torch import ops
+    from gonova_tts_tpu_torch.audio import resample
+    from gonova_tts_tpu_torch.engine import DynamicBatcher, TTSEngine, VoiceEmbeddingCache
+    from gonova_tts_tpu_torch.models import tts
+    from gonova_tts_tpu_torch.ops.mel_spectrogram import mel_spectrogram_plain
+    from gonova_tts_tpu_torch.service import StreamingSynthesizer, VoiceManager
+    from gonova_tts_tpu_torch.utils import read_wav
+
+    with open(VOICE_WAV, "rb") as fh:
+        payload = base64.b64encode(fh.read()).decode()
+    signals = {sr: test_signal(np, sr, 3.0, sr) for sr in (48000, 44100)}
+    synth = StreamingSynthesizer(engine_config("bfloat16", kernels=True))
+    out = {}
+
+    async def stream(text, voice):
+        return np.concatenate([c async for c in synth.synthesize_streaming(text, voice_embedding=voice, exaggeration=0.5)])
+
+    async def drive(voice_dir):
+        await synth.load()
+        eng = synth.engine
+        if not (eng.ecfg.mel_pallas and eng.device.type == "cuda"):
+            fail("the voice path would not take the mel kernel")
+        voices, cache = VoiceManager(cache_dir=voice_dir), VoiceEmbeddingCache()
+        # A window only a full batch ends: the four submits always share it.
+        batcher = DynamicBatcher(eng, max_batch=len(SENTENCES), window_ms=5000.0)
+        await batcher.start()
+        # The main path: launch counts from zero, read right after.
+        ops.reset_launch_counts()
+        await voices.register_voice("smoke-voice", payload)
+        path = await voices.get_voice("smoke-voice")
+        t0 = time.perf_counter()
+        emb = eng.embed_voice_file(path)
+        out["embed_voice_cold_ms"] = (time.perf_counter() - t0) * 1e3
+        cache.put("smoke-voice", emb)
+        t0 = time.perf_counter()
+        again = eng.embed_voice_file(path)
+        out["embed_voice_warm_ms"] = (time.perf_counter() - t0) * 1e3
+        resampled = {sr: await synth.extract_voice_embedding(sig, sr) for sr, sig in signals.items()}
+        cloned = [await stream(s, cache.get("smoke-voice")) for s in SENTENCES]
+        by_path = await stream(SENTENCES[0], path)
+        batched = await asyncio.gather(*[batcher.submit(s, speaker=cache.get("smoke-voice")) for s in SENTENCES])
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()
+        await batcher.stop()
+        default = await stream(SENTENCES[0], None)
+        return eng, path, emb, again, resampled, cloned, by_path, batched, default, launches, batcher.metrics
+
+    with tempfile.TemporaryDirectory() as voice_dir:
+        eng, path, emb, again, resampled, cloned, by_path, batched, default, launches, metrics = asyncio.run(drive(voice_dir))
+        audio, sr = read_wav(path)
+
+    # The embedding through the kernel's mel vs through the plain mel, f32 and bf16.
+    ref = TTSEngine(engine_config("float32", kernels=False))
+    ref.load(warmup=False)
+    emb_diff = {}
+    with torch.inference_mode():
+        for name, e, dt in (("f32", ref, torch.float32), ("bf16", eng, torch.bfloat16)):
+            buf, valid = e.analysis_buffer(np.asarray(audio, np.float32), sr)
+            mask = (torch.arange(buf.shape[1] // e.hop, device=e.device)[None] < valid).float()
+            plain = tts.embed_speaker(e.params, mel_spectrogram_plain(buf), mask, dtype=dt)[0].float().cpu().numpy()
+            emb_diff[name] = float(np.abs(e.embed_voice(np.asarray(audio, np.float32), sr) - plain).max())
+        resample_diff = max(
+            float((resample(torch.as_tensor(sig, device=eng.device), sr_in, 24000).cpu()
+                   - resample(torch.as_tensor(sig), sr_in, 24000)).abs().max())
+            for sr_in, sig in signals.items()
+        )
+    embeddings = [emb, again, *resampled.values()]
+    norm_err = max(abs(float(np.linalg.norm(e)) - 1.0) for e in embeddings)
+    batch_vs_stream = max_diff(list(batched), cloned)
+    b = VOICE_BOUNDS
+    checks = {
+        "voice_launches_positive": all(launches.get(k, 0) > 0 for k in ("mel_spectrogram", "transformer_stack", "vocos_stack")),
+        "embeddings_finite_shape": all(e.shape == (eng.mcfg.speaker_dim,) and np.isfinite(e).all() for e in embeddings),
+        "embeddings_unit_norm": norm_err <= b["embedding_unit_norm"],
+        "embedding_repeats": bool(np.array_equal(emb, again)),
+        "embedding_depends_on_voice": float(np.abs(emb - resampled[48000]).max()) > 1e-3,
+        "embedding_kernel_mel_vs_plain_mel_f32": emb_diff["f32"] <= b["embedding_kernel_mel_vs_plain_mel_f32"],
+        "embedding_kernel_mel_vs_plain_mel_bf16": emb_diff["bf16"] <= b["embedding_kernel_mel_vs_plain_mel_bf16"],
+        "resample_card_vs_cpu": resample_diff <= b["resample_card_vs_cpu"],
+        "cloned_finite_nonempty": all(np.isfinite(w).all() and w.size > 0 for w in cloned + [by_path] + list(batched)),
+        "cloned_differs_from_default_speaker": cloned[0].shape != default.shape or float(np.abs(cloned[0] - default).max()) > 1e-3,
+        "path_and_array_embeddings_same_audio": bool(np.array_equal(cloned[0], by_path)),
+        "cloned_batch_vs_stream": batch_vs_stream <= b["cloned_batch_vs_stream"],
+        "batcher_coalesced": metrics["requests"] == len(SENTENCES) and metrics["batches"] < len(SENTENCES),
+    }
+    report["voice_path"] = {
+        "requests": {"embed": 4, "stream": len(SENTENCES) + 1, "batched": len(SENTENCES)}, "launches": launches,
+        **out, "embedding_kernel_mel_vs_plain_mel": emb_diff, "embedding_unit_norm_err": norm_err,
+        "resample_card_vs_cpu": resample_diff, "cloned_batch_vs_stream": batch_vs_stream,
+        "batcher": metrics, "bounds": VOICE_BOUNDS, "checks": checks,
+    }
+    return launches, checks
+
+
 def main() -> None:
     try:
         import numpy as np
@@ -367,31 +608,50 @@ def main() -> None:
     report = {}
     ts_cases = transformer_cases(model, torch, dev, rng)
     vs_cases = vocos_cases(model, torch, dev, rng)
-    for c in ts_cases + vs_cases:
+    mel_cs = mel_cases(torch, dev, rng)
+    cb_cases = convnext_cases(model, torch, dev, rng)
+    chain = convnext_chain(model, torch, dev, rng)
+    for c in ts_cases + vs_cases + mel_cs + cb_cases + [chain]:
         print("kernel case: " + json.dumps(c), flush=True)
     del model
     launches, checks = run_engine(torch, np, report)
     print("engine: " + json.dumps(report), flush=True)
+    voice_launches, voice_checks = run_voice(torch, np, report)
+    print("voice: " + json.dumps(report["voice_path"]), flush=True)
+    print("embed_voice latency: cold {embed_voice_cold_ms:.1f} ms, warm {embed_voice_warm_ms:.2f} ms".format(
+        **report["voice_path"]), flush=True)
+    mel_voice = next(c for c in mel_cs if c["case"] == "voice B=1 T=239872")
+    print("mel kernel at the voice path's shape: " + json.dumps(
+        {k: mel_voice[k] for k in ("ms", "plain_ms", "bound_ms", "gflop")}), flush=True)
 
-    def entry(name, route_src, replaces, cases, main_case):
-        rep = next(c for c in cases if c["case"] == main_case and c["dtype"] == "bfloat16")
+    def entry(name, replaces, cases, main_case, dtype, n_launches, **extra):
+        """`launches` is the count from the kernel's main path: the engine run for the
+        two stacks, the voice run for the mel, the chained-block run for the block."""
+        rep = next(c for c in cases if c["case"] == main_case and c["dtype"] == dtype)
         return {
-            "name": name, "route": "cuda", "source": route_src, "replaces": replaces,
-            "launches": launches.get(name, 0),
+            "name": name, "route": "cuda", "source": f"gonova_tts_tpu_torch/csrc/{name}.cu",
+            "replaces": replaces, "launches": n_launches,
             "max_abs_err": max(c["max_abs_err"] for c in cases),
             "ms": rep["ms"], "plain_ms": rep["plain_ms"], "bound_ms": rep["bound_ms"],
             "bound_by": rep["bound_by"], "library_ms": None,
-            "at": f"{main_case} bf16", "cases": cases,
+            "at": f"{main_case} {dtype}", **extra, "cases": cases,
         }
 
     kernels = [
-        entry("transformer_stack", "gonova_tts_tpu_torch/csrc/transformer_stack.cu",
-              "gonova_tts_tpu/ops/transformer_stack_kernel.py:332", ts_cases, "decoder B=4 T=512"),
-        entry("vocos_stack", "gonova_tts_tpu_torch/csrc/vocos_stack.cu",
-              "gonova_tts_tpu/ops/vocos_stack_kernel.py:143", vs_cases, "B=4 T=320"),
+        entry("transformer_stack", "gonova_tts_tpu/ops/transformer_stack_kernel.py:332", ts_cases,
+              "decoder B=4 T=512", "bfloat16", launches.get("transformer_stack", 0),
+              launches_voice_path=voice_launches.get("transformer_stack", 0)),
+        entry("vocos_stack", "gonova_tts_tpu/ops/vocos_stack_kernel.py:143", vs_cases,
+              "B=4 T=320", "bfloat16", launches.get("vocos_stack", 0),
+              launches_voice_path=voice_launches.get("vocos_stack", 0)),
+        entry("mel_spectrogram", "gonova_tts_tpu/ops/mel_kernel.py:151", mel_cs,
+              "voice B=1 T=239872", "float32", voice_launches.get("mel_spectrogram", 0)),
+        entry("convnext_block", "gonova_tts_tpu/ops/convnext_kernel.py:146", cb_cases + [chain],
+              "B=4 T=320", "x bfloat16, mlp bfloat16", chain["launches"]),
     ]
-    bad = [f"{c['case']} {c['dtype']}" for c in ts_cases + vs_cases if not c["ok"]]
-    bad += [k for k, v in checks.items() if not v]
+    bad = [f"{c['case']} {c['dtype']}" for c in ts_cases + vs_cases + mel_cs + cb_cases + [chain] if not c["ok"]]
+    bad += [k for k, v in {**checks, **voice_checks}.items() if not v]
+    bad += [f"{k['name']} never launched on its path" for k in kernels if k["launches"] <= 0]
     if bad:
         print(json.dumps({"kernels": kernels}), flush=True)
         fail(f"checks failed: {bad}")

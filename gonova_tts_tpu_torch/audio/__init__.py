@@ -1,5 +1,20 @@
-"""DSP helpers the port needs (the iSTFT bases of the vocoder head)."""
+"""DSP ops of the port: STFT bases and framing, mel features, resampling."""
 
-from .stft import hann_window, idft_bases
+from .mel import mcd, mel_filterbank, mel_mse, mel_spectrogram
+from .resample import resample, resample_np
+from .stft import dft_bases, frame_signal, hann_window, idft_bases, spectrogram, stft_ri
 
-__all__ = ["hann_window", "idft_bases"]
+__all__ = [
+    "dft_bases",
+    "frame_signal",
+    "hann_window",
+    "idft_bases",
+    "mcd",
+    "mel_filterbank",
+    "mel_mse",
+    "mel_spectrogram",
+    "resample",
+    "resample_np",
+    "spectrogram",
+    "stft_ri",
+]

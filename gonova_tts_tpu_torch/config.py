@@ -224,8 +224,9 @@ class EngineConfig(_SectionModel):
     # Device→host audio transfer dtype. "int16" halves the transfer (and is exact
     # 16-bit PCM, inaudible vs float32); host converts back via the native runtime.
     transfer_dtype: str = "int16"
-    # Fused Pallas mel-feature kernel for the voice-embedding path (TPU only;
-    # measured 4.7x faster than the XLA chain on v5e — PERF.md).
+    # Fused mel-feature kernel for the voice-embedding path (the JAX package's field
+    # name; here it selects `ops.mel_spectrogram`'s CUDA kernel when the engine's
+    # device is CUDA, and the plain `audio.mel_spectrogram` otherwise).
     mel_pallas: bool = True
     # Fused whole-stack Pallas kernel for the acoustic encoder/decoder (TPU only,
     # serving path; see ModelConfig.acoustic_pallas). The engine enables the model

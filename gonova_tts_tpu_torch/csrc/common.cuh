@@ -1,6 +1,7 @@
 // Shared pieces of the port's hand-written Hopper kernels: dtype conversion,
-// warp reductions, a row LayerNorm, and one tiled shared-memory GEMM template
-// with the epilogues the two layer stacks need.
+// warp reductions, a row LayerNorm, the ConvNeXt depthwise-conv + LayerNorm row
+// kernel, and one tiled shared-memory GEMM template with the epilogues the layer
+// stacks and the single ConvNeXt block need.
 //
 // Storage type T is float or __nv_bfloat16 (the compute dtype); every product is
 // accumulated in f32, and results are rounded to T exactly where the Pallas
@@ -85,6 +86,67 @@ inline void ln_rows(const T* x, T* y, const float* g, const float* b, int rows, 
       x, y, g, b, rows, D, eps);
 }
 
+// ------------------------------------------------------------------ dwconv + LN
+
+constexpr int DW_THREADS = 128;
+constexpr int DW_MAX_PER_THREAD = 8;  // C <= 1024
+
+// y[row] = LN(depthwise k=7 conv of x over time (zero edges) + bias): one block per
+// (b, t) row, taps, bias and LN statistics in f32, result rounded to TO. dw is
+// [7, C]; x is read as TI (the activation dtype), y written as TO (the MLP dtype).
+template <typename TI, typename TO = TI>
+__global__ void __launch_bounds__(DW_THREADS)
+dwconv_ln_kernel(const TI* __restrict__ x, TO* __restrict__ y, const float* __restrict__ dw,
+                 const float* __restrict__ dwb, const float* __restrict__ g,
+                 const float* __restrict__ b, int Tn, int C, float eps) {
+  __shared__ float red[DW_THREADS / 32];
+  const int row = blockIdx.x, t = row % Tn;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float vals[DW_MAX_PER_THREAD];
+  float s = 0.f;
+#pragma unroll
+  for (int u = 0; u < DW_MAX_PER_THREAD; ++u) {
+    const int c = threadIdx.x + DW_THREADS * u;
+    float a = 0.f;
+    if (c < C) {
+      a = dwb[c];
+#pragma unroll
+      for (int j = 0; j < 7; ++j) {
+        const int ts = t + j - 3;
+        if (ts >= 0 && ts < Tn) a += to_f<TI>(x[(size_t)(row + j - 3) * C + c]) * dw[j * C + c];
+      }
+      s += a;
+    }
+    vals[u] = a;
+  }
+  s = warp_sum(s);
+  if (lane == 0) red[warp] = s;
+  __syncthreads();
+  float tot = 0.f;
+#pragma unroll
+  for (int w = 0; w < DW_THREADS / 32; ++w) tot += red[w];
+  const float mean = tot / C;
+  __syncthreads();
+  float v = 0.f;
+#pragma unroll
+  for (int u = 0; u < DW_MAX_PER_THREAD; ++u) {
+    const int c = threadIdx.x + DW_THREADS * u;
+    if (c < C) v += (vals[u] - mean) * (vals[u] - mean);
+  }
+  v = warp_sum(v);
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  tot = 0.f;
+#pragma unroll
+  for (int w = 0; w < DW_THREADS / 32; ++w) tot += red[w];
+  const float rstd = 1.0f / sqrtf(tot / C + eps);
+#pragma unroll
+  for (int u = 0; u < DW_MAX_PER_THREAD; ++u) {
+    const int c = threadIdx.x + DW_THREADS * u;
+    if (c < C) y[(size_t)row * C + c] = from_f<TO>((vals[u] - mean) * rstd * g[c] + b[c]);
+  }
+}
+
 // ------------------------------------------------------------------ GEMM
 //
 // C[M, N] = epilogue(A'[M, K] @ W[K, N]), W row-major [K, N] (the JAX [in, out]
@@ -102,16 +164,21 @@ enum AMode { A_ROWS = 0, A_CONV3 = 1 };
 //   EPI_RESID_MASK:  C = T(T(R + T(v)) * mask[m])      (residual + row mask)
 //   EPI_GELU:        C = T(gelu_tanh(T(v)))
 //   EPI_GAMMA_RESID: C = T(R + T(v * gamma[n]))        (layer-scale residual)
+//   EPI_GELU_F32:    C = T(gelu_tanh(v))               (GELU of the f32 sum)
 // R is resid[m, n], which may alias C (each element is read, then written, by
-// the same thread).
-enum Epi { EPI_BIAS = 0, EPI_BIAS_RELU = 1, EPI_RESID_MASK = 2, EPI_GELU = 3, EPI_GAMMA_RESID = 4 };
+// the same thread). A and W are stored as T; C and R as TC (T unless given), and
+// the roundings above are then to TC.
+enum Epi {
+  EPI_BIAS = 0, EPI_BIAS_RELU = 1, EPI_RESID_MASK = 2, EPI_GELU = 3, EPI_GAMMA_RESID = 4,
+  EPI_GELU_F32 = 5
+};
 
 constexpr int BM = 64, BN = 64, BK = 16, GEMM_THREADS = 256;
 
-template <typename T, int AMODE, int EPI>
+template <typename T, int AMODE, int EPI, typename TC = T>
 __global__ void __launch_bounds__(GEMM_THREADS)
-gemm_kernel(const T* __restrict__ A, const T* __restrict__ W, T* C, int M, int N, int K,
-            int T_len, int Cin, const float* __restrict__ bias, const T* resid,
+gemm_kernel(const T* __restrict__ A, const T* __restrict__ W, TC* C, int M, int N, int K,
+            int T_len, int Cin, const float* __restrict__ bias, const TC* resid,
             const float* __restrict__ mask, const float* __restrict__ gamma) {
   __shared__ __align__(16) float As[BK][BM + 4];
   __shared__ __align__(16) float Ws[BK][BN + 4];
@@ -176,24 +243,30 @@ gemm_kernel(const T* __restrict__ A, const T* __restrict__ W, T* C, int M, int N
       } else if (EPI == EPI_BIAS_RELU) {
         out = fmaxf(v, 0.f);
       } else if (EPI == EPI_RESID_MASK) {
-        out = rnd<T>(to_f<T>(resid[o]) + rnd<T>(v)) * mask[m];
+        out = rnd<TC>(to_f<TC>(resid[o]) + rnd<TC>(v)) * mask[m];
       } else if (EPI == EPI_GELU) {
-        out = gelu_tanh(rnd<T>(v));
+        out = gelu_tanh(rnd<TC>(v));
+      } else if (EPI == EPI_GELU_F32) {
+        out = gelu_tanh(v);
       } else {  // EPI_GAMMA_RESID
-        out = to_f<T>(resid[o]) + rnd<T>(v * gamma[n]);
+        out = to_f<TC>(resid[o]) + rnd<TC>(v * gamma[n]);
       }
-      C[o] = from_f<T>(out);
+      C[o] = from_f<TC>(out);
     }
   }
 }
 
-template <typename T, int AMODE, int EPI>
-inline void gemm(const T* A, const T* W, T* C, int M, int N, int K, int T_len, int Cin,
-                 const float* bias, const T* resid, const float* mask, const float* gamma,
-                 cudaStream_t s) {
+// TC is never deduced (a null `resid` has no pointee type to deduce from): it is
+// T unless the caller names it.
+template <typename U> struct same_type { using type = U; };
+
+template <typename T, int AMODE, int EPI, typename TC = T>
+inline void gemm(const T* A, const T* W, typename same_type<TC>::type* C, int M, int N, int K,
+                 int T_len, int Cin, const float* bias, const typename same_type<TC>::type* resid,
+                 const float* mask, const float* gamma, cudaStream_t s) {
   dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
-  gemm_kernel<T, AMODE, EPI><<<grid, GEMM_THREADS, 0, s>>>(A, W, C, M, N, K, T_len, Cin, bias,
-                                                           resid, mask, gamma);
+  gemm_kernel<T, AMODE, EPI, TC><<<grid, GEMM_THREADS, 0, s>>>(A, W, C, M, N, K, T_len, Cin,
+                                                               bias, resid, mask, gamma);
 }
 
 }  // namespace port

@@ -5,7 +5,7 @@
 // Replaces gonova_tts_tpu/ops/vocos_stack_kernel.py::vocos_stack_pallas (one
 // pallas_call with the activation resident in VMEM and the MLP weights streamed
 // per block). Here the host loops over the blocks and launches, per block:
-//   dwconv_ln (one block per (b, t) row: the 7 taps, the bias and the LN in f32)
+//   dwconv_ln (common.cuh; one block per (b, t) row: the 7 taps, the bias and the LN in f32)
 //   -> gemm w1 with a GELU epilogue -> gemm w2 with the layer-scale residual
 //   epilogue, written in place into the activation.
 //
@@ -21,62 +21,6 @@
 #include "common.cuh"
 
 namespace port {
-
-constexpr int DW_THREADS = 128;
-constexpr int DW_MAX_PER_THREAD = 8;  // C <= 1024
-
-template <typename T>
-__global__ void __launch_bounds__(DW_THREADS)
-dwconv_ln_kernel(const T* __restrict__ x, T* __restrict__ y, const float* __restrict__ dw,
-                 const float* __restrict__ dwb, const float* __restrict__ g,
-                 const float* __restrict__ b, int Tn, int C, float eps) {
-  __shared__ float red[DW_THREADS / 32];
-  const int row = blockIdx.x, t = row % Tn;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  float vals[DW_MAX_PER_THREAD];
-  float s = 0.f;
-#pragma unroll
-  for (int u = 0; u < DW_MAX_PER_THREAD; ++u) {
-    const int c = threadIdx.x + DW_THREADS * u;
-    float a = 0.f;
-    if (c < C) {
-      a = dwb[c];
-#pragma unroll
-      for (int j = 0; j < 7; ++j) {
-        const int ts = t + j - 3;
-        if (ts >= 0 && ts < Tn) a += to_f<T>(x[(size_t)(row + j - 3) * C + c]) * dw[j * C + c];
-      }
-      s += a;
-    }
-    vals[u] = a;
-  }
-  s = warp_sum(s);
-  if (lane == 0) red[warp] = s;
-  __syncthreads();
-  float tot = 0.f;
-#pragma unroll
-  for (int w = 0; w < DW_THREADS / 32; ++w) tot += red[w];
-  const float mean = tot / C;
-  __syncthreads();
-  float v = 0.f;
-#pragma unroll
-  for (int u = 0; u < DW_MAX_PER_THREAD; ++u) {
-    const int c = threadIdx.x + DW_THREADS * u;
-    if (c < C) v += (vals[u] - mean) * (vals[u] - mean);
-  }
-  v = warp_sum(v);
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  tot = 0.f;
-#pragma unroll
-  for (int w = 0; w < DW_THREADS / 32; ++w) tot += red[w];
-  const float rstd = 1.0f / sqrtf(tot / C + eps);
-#pragma unroll
-  for (int u = 0; u < DW_MAX_PER_THREAD; ++u) {
-    const int c = threadIdx.x + DW_THREADS * u;
-    if (c < C) y[(size_t)row * C + c] = from_f<T>((vals[u] - mean) * rstd * g[c] + b[c]);
-  }
-}
 
 template <typename T>
 int stack_forward(int B, int Tn, int C, int F, int L, T* act, const float* dw, const float* dwb,

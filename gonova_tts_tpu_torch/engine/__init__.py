@@ -1,5 +1,7 @@
-"""Serving engine of the port."""
+"""Serving engine of the port: bucketed synthesis, dynamic batching, voice embeddings."""
 
+from .batcher import DynamicBatcher
 from .engine import TTSEngine
+from .voice_cache import VoiceEmbeddingCache
 
-__all__ = ["TTSEngine"]
+__all__ = ["DynamicBatcher", "TTSEngine", "VoiceEmbeddingCache"]

@@ -1,8 +1,8 @@
 """TTSEngine for the port: bucketed batch synthesis and streaming on one CUDA device.
 
 Counterpart of `gonova_tts_tpu/engine/engine.py` `TTSEngine`, with the same public
-surface (`load`, `warmup`, `synthesize_batch`, `synthesize_stream`, `health_check`,
-`get_stats`) and the same dispatch rules:
+surface (`load`, `warmup`, `embed_voice`, `embed_voice_file`, `synthesize_batch`,
+`synthesize_stream`, `health_check`, `get_stats`) and the same dispatch rules:
 
   * token and batch buckets, so every device pass has one of a few shapes;
   * one-graph (`tts.synthesize`) or two-stage dispatch (`encode_acoustic`, one
@@ -12,11 +12,13 @@ surface (`load`, `warmup`, `synthesize_batch`, `synthesize_stream`, `health_chec
     configured threshold;
   * PCM16 transfer: the device packs `clip(wav * 32767, ±32767)` with a
     truncating int16 cast, the host unpacks `/ 32768`;
-  * streaming by context-padded vocoder windows that reproduce the one-shot audio.
+  * streaming by context-padded vocoder windows that reproduce the one-shot audio;
+  * voice embedding: reference audio → 24 kHz → a fixed 10 s zero-padded analysis
+    buffer → log-mel (the fused kernel on CUDA under `engine.mel_pallas`) →
+    speaker encoder.
 
 PyTorch runs eagerly, so there is no compile cache; `warmup` runs the warmup
-shapes once. Data-parallel serving and `embed_voice` are not ported yet
-(ROADMAP.md); a speaker embedding can still be passed in.
+shapes once. Data-parallel serving is not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -31,12 +33,15 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..audio.mel import mel_spectrogram
+from ..audio.resample import resample
 from ..config import Config
 from ..device import resolve_device
 from ..models import params as params_mod
 from ..models import tts
 from ..text import batch_to_bucket, pick_bucket, segment_text, text_to_ids
-from ..utils import Timers
+from ..ops.mel_spectrogram import mel_spectrogram as mel_spectrogram_fused
+from ..utils import Timers, read_wav
 
 logger = logging.getLogger("gonova_tts_tpu_torch.engine")
 
@@ -205,6 +210,47 @@ class TTSEngine:
             mel = torch.zeros((1, stride + 2 * ctx, self.mcfg.n_mels), dtype=dtype, device=self.device)
             self._pack(tts.vocode(self.params, mel, self.mcfg, dtype)).cpu()
             self.stats["compiles"] += 1
+
+    # ------------------------------------------------------------ voice embedding
+
+    def analysis_buffer(self, audio: np.ndarray, sr: int):
+        """Reference audio → (the fixed [1, max_samples] f32 analysis buffer on the
+        engine's device, the number of valid frames). Stereo is averaged, the clip is
+        resampled to the model rate and cut or zero-padded to 10 s (the validation
+        rules' maximum), rounded down to a hop multiple. The zero tail is part of
+        the function: the right reflect pad mirrors zeros, and frames past the clip
+        are masked out, not absent."""
+        audio = np.asarray(audio, np.float32)
+        if audio.ndim > 1:
+            audio = audio.mean(axis=1)
+        wav = resample(torch.as_tensor(audio, device=self.device), sr, self.sample_rate)
+        max_samples = int(10.0 * self.sample_rate)
+        max_samples -= max_samples % self.hop
+        n = min(wav.shape[0], max_samples)
+        buf = torch.zeros((1, max_samples), dtype=torch.float32, device=self.device)
+        buf[0, :n] = wav[:n]
+        return buf, n // self.hop
+
+    def embed_voice(self, audio: np.ndarray, sr: int) -> np.ndarray:
+        """Reference audio → speaker embedding [speaker_dim]. The mel is always f32;
+        the encoder runs in the engine's compute dtype."""
+        if not self.is_loaded:
+            raise RuntimeError("Engine not loaded. Call load() first")
+        fused = self.ecfg.mel_pallas and self.device.type == "cuda"
+        with self._device_section(), self.timers.track("embed_voice_device"), torch.inference_mode():
+            buf, valid = self.analysis_buffer(audio, sr)
+            mel = (mel_spectrogram_fused if fused else mel_spectrogram)(
+                buf, sr=self.sample_rate, n_fft=self.mcfg.n_fft, hop_length=self.hop,
+                win_length=self.mcfg.win_length, n_mels=self.mcfg.n_mels, fmin=self.mcfg.fmin,
+                fmax=self.mcfg.fmax,
+            )
+            mask = (torch.arange(mel.shape[1], device=self.device)[None] < valid).float()
+            emb = tts.embed_speaker(self.params, mel, mask, dtype=self.compute_dtype)
+            return emb[0].float().cpu().numpy()
+
+    def embed_voice_file(self, path: str) -> np.ndarray:
+        audio, sr = read_wav(path)
+        return self.embed_voice(np.asarray(audio, np.float32), sr)
 
     def default_speaker(self) -> np.ndarray:
         return np.zeros((self.mcfg.speaker_dim,), np.float32)

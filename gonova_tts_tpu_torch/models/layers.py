@@ -94,15 +94,26 @@ def layernorm(p: Mapping, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     return ((xf - mean) * torch.rsqrt(var + eps) * p["g"] + p["b"]).to(x.dtype)
 
 
-def conv1d(p: Mapping, x: torch.Tensor, dtype=torch.float32, groups: int = 1) -> torch.Tensor:
-    """Stride-1 SAME conv. x: [B, T, C_in] → [B, T, C_out]; weight [k, C_in//groups, C_out].
+def conv1d(
+    p: Mapping, x: torch.Tensor, stride: int = 1, dtype=torch.float32, groups: int = 1
+) -> torch.Tensor:
+    """SAME conv. x: [B, T, C_in] → [B, ceil(T / stride), C_out]; weight
+    [k, C_in//groups, C_out].
 
-    Odd kernels only: SAME padding is then symmetric, (k-1)/2 each side."""
+    SAME padding is the JAX/XLA rule: total = max((ceil(T / stride) - 1) * stride
+    + k - T, 0), the smaller half on the left. For stride 1 and an odd kernel that
+    is (k - 1) / 2 each side; for stride 2 it depends on T's parity (k=5: (1, 2)
+    for even T, (2, 2) for odd), so the pad is explicit."""
     k = p["w"].shape[0]
-    if k % 2 != 1:
-        raise ValueError(f"conv1d takes odd kernels (SAME padding), got k={k}")
+    t = x.shape[1]
+    total = max((-(-t // stride) - 1) * stride + k - t, 0)
+    lo = total // 2
     w = p["w"].to(dtype).permute(2, 1, 0)  # [C_out, C_in/groups, k]
-    y = F.conv1d(x.to(dtype).transpose(1, 2), w, padding=k // 2, groups=groups)
+    xt = x.to(dtype).transpose(1, 2)
+    if total == 2 * lo:  # symmetric: the conv pads, no copy
+        y = F.conv1d(xt, w, stride=stride, padding=lo, groups=groups)
+    else:
+        y = F.conv1d(F.pad(xt, (lo, total - lo)), w, stride=stride, groups=groups)
     return y.transpose(1, 2) + p["b"].to(dtype)
 
 

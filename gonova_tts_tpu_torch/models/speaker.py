@@ -1,12 +1,13 @@
-"""NovaSpk speaker encoder: parameters only, for now.
+"""NovaSpk: speaker encoder for one-shot voice cloning.
 
-Counterpart of `gonova_tts_tpu/models/speaker.py`. Checkpoints carry the speaker
-subtree, so the port loads and keeps it; the encoder's forward pass (three
-stride-2 convs with JAX's asymmetric SAME padding, masked pooling) belongs to the
-voice-embedding path, which the text → PCM path does not run.
+Counterpart of `gonova_tts_tpu/models/speaker.py`. Reference log-mel → three
+stride-2 convs (ReLU, then LayerNorm) → masked mean + std pooling → dense →
+L2-normalized embedding.
 """
 
 from __future__ import annotations
+
+from typing import Mapping
 
 import torch
 
@@ -25,3 +26,28 @@ def init(g: torch.Generator, cfg: ModelConfig, hidden: int = 256) -> Tree:
         ln3=layers.layernorm_init(hidden),
         out=layers.dense_init(g, 2 * hidden, cfg.speaker_dim),
     )
+
+
+def forward(
+    params: Mapping,
+    mel: torch.Tensor,  # [B, T, n_mels]
+    frame_mask: torch.Tensor,  # [B, T] 1 = valid
+    dtype=torch.float32,
+) -> torch.Tensor:
+    """→ [B, speaker_dim] f32, L2-normalized."""
+    h = mel.to(dtype)
+    mask = frame_mask.to(dtype)
+    for conv, ln in (("c1", "ln1"), ("c2", "ln2"), ("c3", "ln3")):
+        h = layers.conv1d(params[conv], h * mask[..., None], stride=2, dtype=dtype)
+        h = layers.layernorm(params[ln], torch.relu(h))
+        # Pool the mask at the same stride (source frame 2 * i decides output i).
+        mask = mask[:, : h.shape[1] * 2 : 2]
+
+    m = mask[..., None]
+    denom = torch.clamp(m.sum(dim=1), min=1.0)
+    mean = (h * m).sum(dim=1) / denom
+    var = (((h - mean[:, None, :]) ** 2) * m).sum(dim=1) / denom
+    std = torch.sqrt(torch.clamp(var, min=1e-6))
+    pooled = torch.cat([mean, std], dim=-1)  # [B, 2H]
+    emb = layers.dense(params["out"], pooled, dtype).float()
+    return emb / torch.clamp(torch.linalg.norm(emb, dim=-1, keepdim=True), min=1e-6)

@@ -1,8 +1,9 @@
-"""The combined TTS pipeline: acoustic model + vocoder (+ speaker encoder weights).
+"""The combined TTS pipeline: acoustic model + vocoder + speaker encoder.
 
 Counterpart of `gonova_tts_tpu/models/tts.py`. `synthesize` is tokens → mel →
 waveform in one pass; `encode_acoustic` / `decode_vocode` are the engine's
-two-stage halves; `acoustic_mel` and `vocode` are the streaming stages.
+two-stage halves; `acoustic_mel` and `vocode` are the streaming stages;
+`embed_speaker` is the voice-cloning stage (reference log-mel → embedding).
 """
 
 from __future__ import annotations
@@ -76,6 +77,13 @@ def synthesize(
 def vocode(params: Mapping, mel: torch.Tensor, cfg: ModelConfig, dtype=torch.float32) -> torch.Tensor:
     _check_family(cfg)
     return vocos.forward(params["vocoder"], mel, cfg, dtype=dtype)
+
+
+def embed_speaker(
+    params: Mapping, mel: torch.Tensor, frame_mask: torch.Tensor, dtype=torch.float32
+) -> torch.Tensor:
+    """Reference mel → speaker embedding [B, speaker_dim]."""
+    return speaker.forward(params["speaker"], mel, frame_mask, dtype=dtype)
 
 
 def encode_acoustic(

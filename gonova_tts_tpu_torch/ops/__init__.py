@@ -4,6 +4,8 @@
 |---|---|---|
 | `transformer_stack.transformer_stack` | `gonova_tts_tpu/ops/transformer_stack_kernel.py` `transformer_stack_pallas` | `csrc/transformer_stack.cu` |
 | `vocos_stack.vocos_stack` | `gonova_tts_tpu/ops/vocos_stack_kernel.py` `vocos_stack_pallas` | `csrc/vocos_stack.cu` |
+| `mel_spectrogram.mel_spectrogram` | `gonova_tts_tpu/ops/mel_kernel.py` `mel_spectrogram_pallas` | `csrc/mel_spectrogram.cu` |
+| `convnext_block.convnext_block` | `gonova_tts_tpu/ops/convnext_kernel.py` `convnext_block_pallas` | `csrc/convnext_block.cu` |
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches the kernel (built on first use by `_build.py`) or raises. Every launch

@@ -34,3 +34,6 @@ def test_no_jax_imports(path):
 def test_scan_sees_the_whole_port():
     names = {p.name for p in FILES}
     assert {"engine.py", "transformer_stack.py", "vocos_stack.py", "neural_g2p.py", "chip_smoke.py"} <= names
+    assert {"mel_spectrogram.py", "convnext_block.py", "resample.py", "mel.py", "speaker.py", "batcher.py",
+            "voice_cache.py", "voice_manager.py", "queue_manager.py", "rate_limiter.py", "synthesizer.py",
+            "wavio.py", "jsonlog.py", "native.py"} <= names

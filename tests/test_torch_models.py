@@ -85,6 +85,20 @@ def test_seeded_jax_tree_loads_and_mismatch_raises(tiny):
         params.from_numpy_tree(tree, ModelConfig(**{**TINY, "d_ff": 256}), device="cpu")
 
 
+@pytest.mark.parametrize("t", [37, 40])
+def test_embed_speaker_matches_jax_through_the_bridge(tiny, rng, t):
+    """The speaker subtree of the seeded JAX tree, loaded by `from_numpy_tree`:
+    both packages' `embed_speaker` give the same embedding (atol 1e-5)."""
+    jcfg, tree, model = tiny
+    mel = rng.standard_normal((2, t, jcfg.n_mels)).astype(np.float32)
+    mask = (np.arange(t)[None] < np.array([t, t - 11])[:, None]).astype(np.float32)
+    ours = tts.embed_speaker(model, torch.as_tensor(mel), torch.as_tensor(mask))
+    theirs = jtts.embed_speaker(tree, jnp.asarray(mel), jnp.asarray(mask))
+    assert ours.shape == (2, jcfg.speaker_dim) and ours.dtype == torch.float32
+    close(ours, theirs, atol=1e-5, rtol=0)
+    np.testing.assert_allclose(np.linalg.norm(ours.numpy(), axis=-1), 1.0, atol=1e-5)
+
+
 def test_acoustic_encode_decode_forward(tiny):
     jcfg, tree, model = tiny
     cfg = model.cfg
