@@ -6,9 +6,17 @@
 Phases; any failure exits non-zero before the final line:
   1. device: name and power limit (nvidia-smi); no card → exit 3, no result.
   2. build: every gonova_tts_tpu_torch/csrc/*.cu with nvcc for sm_90a, in parallel.
-  3. kernels: each hand-written kernel vs its plain PyTorch version on the card, at
-     the serving path's shapes, f32 and bf16: max |error| against a stated bound,
-     kernel and plain times (CUDA events), and the least time the card could take.
+  3. kernels: first the bf16 tensor-core GEMM both stacks share, alone, at the six
+     serving products and four row counts (`gemm case:` lines: device time from a
+     replayed CUDA graph, the bound, and one `torch.matmul` of the bare product as a
+     yardstick the port never calls). Then each hand-written kernel vs its plain
+     PyTorch version on the card, at the serving path's shapes, f32 and bf16: max
+     |error| against a stated bound,
+     kernel and plain times (CUDA events around eager calls: `ms` includes the host's
+     launch cost, which is most of a small stack's time; `device_ms` of the two stacks
+     is the same call replayed from a CUDA graph), and the least time the card could take.
+     A bf16 decoder stack at T = 320 and the same sequences padded to T = 448 must
+     give bit-equal valid rows (`shape_independent_bf16`).
      The single ConvNeXt block is also chained over the checkpoint's eight blocks,
      with its launch count read, against the stack kernel.
   4. engine: the demo checkpoint (assets/checkpoints/demo_ema_f16.npz, full width,
@@ -24,7 +32,10 @@ Phases; any failure exits non-zero before the final line:
   6. output: a `kernels` JSON line, the nvidia-smi line, then the `ok` JSON line.
 
 Bounds (max |error| unless named):
-  kernels f32: 2e-3 (summation order through up to 8 layers);
+  kernels f32: KERNEL_F32_BOUND (summation order through up to 8 layers);
+  the GEMM alone, bf16: one bf16 ulp (2^-7 relative) per rounding of the epilogue (one
+    for bias and ReLU, two for the others), of |output|, or of |output| + |resid| for
+    a residual epilogue (the rounded term may cancel in the sum), plus GEMM_ATOL;
   kernels bf16: KERNEL_BF16_BOUND (a one-ulp bf16 flip at a rounding point, ~0.4%,
     carried through the later layers);
   two-stage vs one-graph, streamed vs one-shot: see ENGINE_BOUNDS;
@@ -49,6 +60,7 @@ import time
 
 KERNEL_F32_BOUND = 1e-4
 KERNEL_BF16_BOUND = 0.1
+GEMM_RTOL, GEMM_ATOL = 2.0 ** -7, 1e-2
 # Audio is PCM16 in [-1, 1]; one LSB is 1/32767. In bf16 the kernels give the same
 # rows at any frame bucket, but cuBLAS and cuDNN pick other algorithms for other
 # shapes (the mel and STFT-head products, the embed conv), and a bf16 rounding flip
@@ -135,12 +147,84 @@ def bound(bytes_moved: int, flops: float, dtype_name: str):
 # ------------------------------------------------------------------ phase 3
 
 
+def gemm_cases(torch, dev, rng):
+    """The six serving products of the two stacks, bf16, at M = B*T rows for B = 4 and
+    T = 64, 320, 512, 2048, through `ops.gemm_tc` with each product's own epilogue."""
+    import numpy as np
+
+    from gonova_tts_tpu_torch.ops import gemm_tc as g
+    from gonova_tts_tpu_torch.ops.gemm_tc_sweep import PRODUCTS, graph_ms
+
+    bf = lambda a: torch.as_tensor(a.astype(np.float32), device=dev).bfloat16()  # noqa: E731
+    cases = []
+    for name, cin, taps, n, epi in PRODUCTS:
+        k = taps * cin
+        w = bf(rng.standard_normal((k, n)) / np.sqrt(k))
+        wt = w.t().contiguous()
+        bias = torch.as_tensor(rng.standard_normal(n).astype(np.float32), device=dev)
+        gamma = torch.as_tensor(rng.standard_normal(n).astype(np.float32), device=dev)
+        for t in (64, 320, 512, 2048):
+            b = 4
+            m = b * t
+            a, resid = bf(rng.standard_normal((b, t, cin))), bf(rng.standard_normal((b, t, n)))
+            mask = torch.ones((b, t), device=dev)
+            mask[1, t // 2:] = 0.0
+            args = (a, w, epi, bias, resid, mask, gamma, taps)
+            out, ref = g.gemm_tc(*args, wt=wt), g.gemm_tc_plain(*args)
+            torch.cuda.synchronize()
+            scale = ref.float().abs() + (resid.float().abs() if epi in (g.EPI_RESID_MASK, g.EPI_GAMMA_RESID) else 0.0)
+            roundings = 1 if epi in (g.EPI_BIAS, g.EPI_BIAS_RELU) else 2
+            err = (out.float() - ref.float()).abs()
+            rows = g.im2col3(a).reshape(m, k) if taps == 3 else a.reshape(m, k)
+            flops = 2.0 * m * k * n
+            extra = nbytes(resid) if epi in (g.EPI_RESID_MASK, g.EPI_GAMMA_RESID) else 0
+            bound_ms, bound_by = bound(nbytes(a, w, out, bias) + extra, flops, "bfloat16")
+            ms = graph_ms(lambda: g.gemm_tc(*args, wt=wt))
+            seqs, t_len = (b, t) if taps == 3 else (1, m)
+            cases.append({
+                "case": f"{name} {taps}x{cin}->{n} M={m}", "dtype": "bfloat16", "plan": list(g.plan(seqs, t_len, n, k)),
+                "max_abs_err": float(err.max()), "tolerance": f"{GEMM_ATOL} + {roundings} * 2^-7 * scale",
+                "ok": bool(torch.isfinite(out.float()).all()) and bool((err <= GEMM_ATOL + roundings * GEMM_RTOL * scale).all()),
+                "ms": ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                "matmul_ms": graph_ms(lambda: torch.matmul(rows, w)),
+                "gflop": flops / 1e9, "tflops": flops / ms / 1e9,
+            })
+    return cases
+
+
+def kernel_reads(packed, bf16: bool):
+    """The packed tensors a stack kernel reads: in bf16 the [N, K] copy of a weight,
+    not the [K, N] one the plain version reads."""
+    return [v for k, v in packed.items() if not (bf16 and k + "_t" in packed)]
+
+
+def shape_independent_bf16(model, torch, dev, rng) -> bool:
+    """The checkpoint's decoder stack in bf16 on a prefix-masked batch at T = 320 and
+    on the same sequences padded to T = 448: bit-equal valid rows. No sequence fills
+    T = 320, so the frame after a sequence's end is a masked frame at both lengths."""
+    import numpy as np
+
+    from gonova_tts_tpu_torch.ops import transformer_stack as ts
+
+    packed = ts.pack_params(model.acoustic.decoder, torch.bfloat16)
+    lengths = [300, 250, 97, 1]
+    mask = torch.as_tensor((np.arange(448)[None] < np.asarray(lengths)[:, None]).astype(np.float32), device=dev)
+    x = torch.as_tensor(rng.standard_normal((4, 448, 256)).astype(np.float32), device=dev) * mask[..., None]
+    short = ts.transformer_stack(x[:, :320].contiguous(), mask[:, :320].contiguous(), packed, 4, None, True)
+    long = ts.transformer_stack(x, mask, packed, 4, None, True)
+    torch.cuda.synchronize()
+    return bool(torch.isfinite(long.float()).all()) and all(
+        torch.equal(short[i, :n], long[i, :n]) for i, n in enumerate(lengths)
+    )
+
+
 def transformer_cases(model, torch, dev, rng):
     """Encoder B=4 T=64; decoder B=4 T=512 (full attention); decoder B=4 T=256
     with local attention w=64. Real checkpoint weights, prefix masks."""
     import numpy as np
 
     from gonova_tts_tpu_torch.ops import transformer_stack as ts
+    from gonova_tts_tpu_torch.ops.gemm_tc_sweep import graph_ms
 
     cases = []
     for name, stack, b, t, window in (
@@ -165,13 +249,14 @@ def transformer_cases(model, torch, dev, rng):
             flops = n_layers * (
                 2 * m * d * 3 * d + 4 * b * t * span * d + 2 * m * d * d + 2 * m * 3 * d * f * 2
             )
-            moved = nbytes(x, mask, out, *packed.values())
+            moved = nbytes(x, mask, out, *kernel_reads(packed, bf16))
             bound_ms, bound_by = bound(moved, flops, name_of(dt))
             cases.append({
                 "case": f"{name} B={b} T={t}" + (f" w={window}" if window else ""),
                 "dtype": name_of(dt), "max_abs_err": err,
                 "tolerance": KERNEL_BF16_BOUND if bf16 else KERNEL_F32_BOUND, "ok": ok,
                 "ms": cuda_ms(lambda: ts.transformer_stack(x, mask, packed, 4, window, bf16), 10),
+                "device_ms": graph_ms(lambda: ts.transformer_stack(x, mask, packed, 4, window, bf16), 4),
                 "plain_ms": cuda_ms(lambda: ts.transformer_stack_plain(x, mask, packed, 4, window, bf16), 10),
                 "bound_ms": bound_ms, "bound_by": bound_by, "gflop": flops / 1e9,
             })
@@ -181,6 +266,7 @@ def transformer_cases(model, torch, dev, rng):
 def vocos_cases(model, torch, dev, rng):
     """B=4 T=320 (a two-stage frame bucket) and B=1 T=122 (the streaming window)."""
     from gonova_tts_tpu_torch.ops import vocos_stack as vs
+    from gonova_tts_tpu_torch.ops.gemm_tc_sweep import graph_ms
 
     cases = []
     for b, t in ((4, 320), (1, 122)):
@@ -195,12 +281,13 @@ def vocos_cases(model, torch, dev, rng):
             ok = bool(torch.isfinite(out.float()).all()) and err <= (KERNEL_BF16_BOUND if bf16 else KERNEL_F32_BOUND)
             c, f, n_layers = 512, packed["w1"].shape[-1], packed["w1"].shape[0]
             flops = n_layers * b * t * (4 * c * f + 2 * 7 * c)
-            moved = nbytes(x, out, *packed.values())
+            moved = nbytes(x, out, *kernel_reads(packed, bf16))
             bound_ms, bound_by = bound(moved, flops, name_of(dt))
             cases.append({
                 "case": f"B={b} T={t}", "dtype": name_of(dt), "max_abs_err": err,
                 "tolerance": KERNEL_BF16_BOUND if bf16 else KERNEL_F32_BOUND, "ok": ok,
                 "ms": cuda_ms(lambda: vs.vocos_stack(x, packed, bf16), 10),
+                "device_ms": graph_ms(lambda: vs.vocos_stack(x, packed, bf16), 4),
                 "plain_ms": cuda_ms(lambda: vs.vocos_stack_plain(x, packed, bf16), 10),
                 "bound_ms": bound_ms, "bound_by": bound_by, "gflop": flops / 1e9,
             })
@@ -606,6 +693,9 @@ def main() -> None:
     model, _ = params.load_checkpoint(DEMO, ModelConfig(), dev)
     rng = np.random.default_rng(0)
     report = {}
+    gm_cases = gemm_cases(torch, dev, np.random.default_rng(1))  # its own stream: the kernel cases keep their inputs
+    for c in gm_cases:
+        print("gemm case: " + json.dumps(c), flush=True)
     ts_cases = transformer_cases(model, torch, dev, rng)
     vs_cases = vocos_cases(model, torch, dev, rng)
     mel_cs = mel_cases(torch, dev, rng)
@@ -613,6 +703,8 @@ def main() -> None:
     chain = convnext_chain(model, torch, dev, rng)
     for c in ts_cases + vs_cases + mel_cs + cb_cases + [chain]:
         print("kernel case: " + json.dumps(c), flush=True)
+    kernel_checks = {"shape_independent_bf16": shape_independent_bf16(model, torch, dev, rng)}
+    print("kernel checks: " + json.dumps(kernel_checks), flush=True)
     del model
     launches, checks = run_engine(torch, np, report)
     print("engine: " + json.dumps(report), flush=True)
@@ -649,8 +741,8 @@ def main() -> None:
         entry("convnext_block", "gonova_tts_tpu/ops/convnext_kernel.py:146", cb_cases + [chain],
               "B=4 T=320", "x bfloat16, mlp bfloat16", chain["launches"]),
     ]
-    bad = [f"{c['case']} {c['dtype']}" for c in ts_cases + vs_cases + mel_cs + cb_cases + [chain] if not c["ok"]]
-    bad += [k for k, v in {**checks, **voice_checks}.items() if not v]
+    bad = [f"{c['case']} {c['dtype']}" for c in gm_cases + ts_cases + vs_cases + mel_cs + cb_cases + [chain] if not c["ok"]]
+    bad += [k for k, v in {**kernel_checks, **checks, **voice_checks}.items() if not v]
     bad += [f"{k['name']} never launched on its path" for k in kernels if k["launches"] <= 0]
     if bad:
         print(json.dumps({"kernels": kernels}), flush=True)

@@ -7,6 +7,10 @@
 | `mel_spectrogram.mel_spectrogram` | `gonova_tts_tpu/ops/mel_kernel.py` `mel_spectrogram_pallas` | `csrc/mel_spectrogram.cu` |
 | `convnext_block.convnext_block` | `gonova_tts_tpu/ops/convnext_kernel.py` `convnext_block_pallas` | `csrc/convnext_block.cu` |
 
+In bf16 the two stacks run their products through the tensor-core GEMM of
+`csrc/gemm_tc.cuh`; `gemm_tc.gemm_tc` (`csrc/gemm_tc.cu`) is that GEMM alone, with its
+planner and plain version: a part of those two kernels, not a fifth.
+
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches the kernel (built on first use by `_build.py`) or raises. Every launch
 adds one to the wrapper's `LaunchCounter`, which is how a run shows that the

@@ -2,8 +2,10 @@
 
 Replaces `gonova_tts_tpu/ops/transformer_stack_kernel.py` `transformer_stack_pallas`
 (the JAX encoder/decoder stacks under `ModelConfig.acoustic_pallas`). The kernel is
-`csrc/transformer_stack.cu`; its source note says what bounds it on the H100 (the
-GEMMs: compute) and what this first design does about it.
+`csrc/transformer_stack.cu`; its source note says what bounds it on the H100
+(operations) and what the design does about it: in bf16 every product runs on the
+tensor cores through `csrc/gemm_tc.cuh` (planned by `gemm_tc.plan`) and attention
+through `attention_tc_kernel`; float32 stays on the CUDA cores.
 
 `transformer_stack_plain` computes the same function in PyTorch, staged as the
 Pallas kernel stages it (fused QKV, f32 logits and softmax, conv FFN as three taps,
@@ -22,27 +24,31 @@ from typing import Dict, Mapping, Optional
 import torch
 
 from ..models.layers import NEG, with_neighbors, uses_local_attention
-from . import counter
+from . import counter, gemm_tc
 
 MAX_T = 768  # the JAX dispatch's kernel budget (acoustic._stack); longer stacks stay plain
 _COUNT = counter("transformer_stack")
 # transformer_stack_forward(dtype, B, T, D, H, F, L, window, 16 inputs, 6 outputs
-# and scratch buffers, stream)
-_SIGNATURE = [ctypes.c_int] * 8 + [ctypes.c_void_p] * 23
+# and scratch buffers, plans, workspace, stream)
+_SIGNATURE = [ctypes.c_int] * 8 + [ctypes.c_void_p] * 25
+_TC_HEAD_WIDTHS = (16, 32, 64)  # attention_tc_kernel's instantiations
 
 
 def pack_params(stack: Mapping, dtype: torch.dtype) -> Dict[str, torch.Tensor]:
     """A `layers.transformer_stack` tree → per-layer arrays in the kernel layout.
 
     wqkv [L, D, 3D] (q | k | v columns), wo [L, D, D], w1 [L, 3, D, F] and
-    w2 [L, 3, F, D] (conv taps, WIO) in `dtype`; biases and LN parameters f32."""
+    w2 [L, 3, F, D] (conv taps, WIO) in `dtype`; biases and LN parameters f32.
+    For bfloat16 also the [N, K] copies the tensor-core GEMM reads: wqkv_t
+    [L, 3D, D], wo_t [L, D, D], w1_t [L, F, 3D], w2_t [L, D, 3F]. The plain version
+    reads the [K, N] ones."""
     blocks = list(stack["blocks"])
 
     def st(fn, dt=torch.float32):
         return torch.stack([fn(b).detach() for b in blocks]).to(dt).contiguous()
 
     attn = lambda b, k, part: b["attn"][k][part]  # noqa: E731
-    return {
+    packed = {
         "ln1_g": st(lambda b: b["ln1"]["g"]), "ln1_b": st(lambda b: b["ln1"]["b"]),
         "ln2_g": st(lambda b: b["ln2"]["g"]), "ln2_b": st(lambda b: b["ln2"]["b"]),
         "wqkv": st(lambda b: torch.cat([attn(b, k, "w") for k in "qkv"], dim=1), dtype),
@@ -53,6 +59,21 @@ def pack_params(stack: Mapping, dtype: torch.dtype) -> Dict[str, torch.Tensor]:
         "lno_g": stack["ln_out"]["g"].detach().float().contiguous(),
         "lno_b": stack["ln_out"]["b"].detach().float().contiguous(),
     }
+    if dtype == torch.bfloat16:
+        for k in ("wqkv", "wo", "w1", "w2"):
+            w = packed[k]
+            packed[k + "_t"] = w.reshape(w.shape[0], -1, w.shape[-1]).transpose(1, 2).contiguous()
+    return packed
+
+
+def tc_plans(b: int, t: int, d: int, f: int) -> list:
+    """(warpgroups, tile columns, split) of the four products of a bf16 layer, in the
+    order the kernel reads them: QKV, out-projection (rows as one sequence of B*T),
+    conv-FFN1, conv-FFN2 (B sequences of T rows)."""
+    return [
+        gemm_tc.plan(1, b * t, 3 * d, d), gemm_tc.plan(1, b * t, d, d),
+        gemm_tc.plan(b, t, f, 3 * d), gemm_tc.plan(b, t, d, 3 * f),
+    ]
 
 
 def _ln(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -145,6 +166,12 @@ def _launch(x, mask, packed, n_heads, window, bf16):
         problems.append(f"head width {d}/{n_heads} (must divide, <= 128)")
     if d % 16 or f % 16:
         problems.append(f"D={d} and F={f} must be multiples of 16")
+    if bf16:
+        problems += gemm_tc.problems(d, 3 * d) + gemm_tc.problems(f, d, taps=3)
+        if dh not in _TC_HEAD_WIDTHS:
+            problems.append(f"bf16 attention takes head widths {_TC_HEAD_WIDTHS}, not {dh}")
+        if "w2_t" not in packed:
+            problems.append("bf16 needs the transposed weights of pack_params(stack, torch.bfloat16)")
     if local and (t % window or window % 8):
         problems.append(f"local attention needs T % window == 0 and window % 8 == 0 (T={t}, w={window})")
     if mask.shape != (b, t):
@@ -165,13 +192,18 @@ def _launch(x, mask, packed, n_heads, window, bf16):
         new(m, d), new(m, 3 * d), new(m, d), new(m, d), new(m, f), new(b, t, d)
     )
     p = _build.ptr
+    weights, plans, ws = packed, None, None
+    if bf16:  # the [N, K] weights, each product's tile and split, the split's workspace
+        weights = {**packed, **{k: packed[k + "_t"] for k in ("wqkv", "wo", "w1", "w2")}}
+        plans, ws = gemm_tc.plan_args(tc_plans(b, t, d, f), m, (3 * d, d, f, d), x.device)
     rc = lib.transformer_stack_forward(
         int(bf16), b, t, d, n_heads, f, n_layers, window if local else 0, p(maskf), p(act),
-        *(p(packed[k]) for k in (
+        *(p(weights[k]) for k in (
             "ln1_g", "ln1_b", "ln2_g", "ln2_b", "wqkv", "bqkv", "wo", "bo",
             "w1", "b1", "w2", "b2", "lno_g", "lno_b",
         )),
-        p(normed), p(qkv), p(att), p(hres), p(h1), p(out), _build.stream_ptr(x.device),
+        p(normed), p(qkv), p(att), p(hres), p(h1), p(out), plans, None if ws is None else p(ws),
+        _build.stream_ptr(x.device),
     )
     _build.check(lib, rc, "transformer_stack kernel")
     _COUNT.count += 1

@@ -3,7 +3,9 @@
 Replaces `gonova_tts_tpu/ops/vocos_stack_kernel.py` `vocos_stack_pallas` (the JAX
 vocoder's block stack under `ModelConfig.vocos_pallas`). The kernel is
 `csrc/vocos_stack.cu`; its source note says what bounds it on the H100 (the two
-MLP GEMMs: compute) and what this first design does about it.
+MLP GEMMs: operations) and what the design does about it: in bf16 both run on the
+tensor cores through `csrc/gemm_tc.cuh` (planned by `gemm_tc.plan`); float32 stays
+on the CUDA cores.
 
 `vocos_stack_plain` computes the same function in PyTorch, staged as the Pallas
 kernel stages it (f32 depthwise taps and LN, MLP products accumulated in f32,
@@ -18,29 +20,42 @@ from typing import Dict, Mapping
 import torch
 import torch.nn.functional as F
 
-from . import counter
+from . import counter, gemm_tc
 
 MAX_T = 768  # the JAX dispatch's kernel budget (vocos.forward); longer mels stay plain
 _COUNT = counter("vocos_stack")
-# vocos_stack_forward(dtype, B, T, C, F, L, act, 9 weights, 2 scratch buffers, stream)
-_SIGNATURE = [ctypes.c_int] * 6 + [ctypes.c_void_p] * 13
+# vocos_stack_forward(dtype, B, T, C, F, L, act, 9 weights, 2 scratch buffers, plans,
+# workspace, stream)
+_SIGNATURE = [ctypes.c_int] * 6 + [ctypes.c_void_p] * 15
 
 
 def pack_params(blocks, dtype: torch.dtype) -> Dict[str, torch.Tensor]:
     """A list of vocos block trees → per-block arrays: dw [L, 7, C] and the other
-    vectors f32, w1 [L, C, F] and w2 [L, F, C] in `dtype`."""
+    vectors f32, w1 [L, C, F] and w2 [L, F, C] in `dtype`. For bfloat16 also the
+    [N, K] copies the tensor-core GEMM reads, w1_t [L, F, C] and w2_t [L, C, F]; the
+    plain version reads the [K, N] ones."""
     blocks = list(blocks)
 
     def st(fn, dt=torch.float32):
         return torch.stack([fn(b).detach() for b in blocks]).to(dt).contiguous()
 
-    return {
+    packed = {
         "dw": st(lambda b: b["dw"]), "dw_b": st(lambda b: b["dw_b"]),
         "ln_g": st(lambda b: b["ln"]["g"]), "ln_b": st(lambda b: b["ln"]["b"]),
         "w1": st(lambda b: b["pw1"]["w"], dtype), "b1": st(lambda b: b["pw1"]["b"]),
         "w2": st(lambda b: b["pw2"]["w"], dtype), "b2": st(lambda b: b["pw2"]["b"]),
         "gamma": st(lambda b: b["gamma"]),
     }
+    if dtype == torch.bfloat16:
+        for k in ("w1", "w2"):
+            packed[k + "_t"] = packed[k].transpose(1, 2).contiguous()
+    return packed
+
+
+def tc_plans(b: int, t: int, c: int, f: int) -> list:
+    """(warpgroups, tile columns, split) of w1 and of w2 in bf16: rows as one
+    sequence of B*T."""
+    return [gemm_tc.plan(1, b * t, f, c), gemm_tc.plan(1, b * t, c, f)]
 
 
 def vocos_stack_plain(x: torch.Tensor, packed: Mapping[str, torch.Tensor], bf16: bool = False) -> torch.Tensor:
@@ -87,6 +102,10 @@ def _launch(x, packed, bf16):
         problems.append("all inputs must be on the same CUDA device")
     if packed["w1"].dtype != cd:
         problems.append(f"weights packed as {packed['w1'].dtype}, compute dtype {cd}")
+    if bf16:
+        problems += gemm_tc.problems(c, f) + gemm_tc.problems(f, c)
+        if "w2_t" not in packed:
+            problems.append("bf16 needs the transposed weights of pack_params(blocks, torch.bfloat16)")
     if problems:
         raise ValueError("vocos_stack kernel: " + "; ".join(problems))
 
@@ -95,10 +114,14 @@ def _launch(x, packed, bf16):
     normed = torch.empty((b * t, c), dtype=cd, device=x.device)
     h = torch.empty((b * t, f), dtype=cd, device=x.device)
     p = _build.ptr
+    weights, plans, ws = packed, None, None
+    if bf16:  # the [N, K] weights, both products' tile and split, the split's workspace
+        weights = {**packed, "w1": packed["w1_t"], "w2": packed["w2_t"]}
+        plans, ws = gemm_tc.plan_args(tc_plans(b, t, c, f), b * t, (f, c), x.device)
     rc = lib.vocos_stack_forward(
         int(bf16), b, t, c, f, n_layers, p(act),
-        *(p(packed[k]) for k in ("dw", "dw_b", "ln_g", "ln_b", "w1", "b1", "w2", "b2", "gamma")),
-        p(normed), p(h), _build.stream_ptr(x.device),
+        *(p(weights[k]) for k in ("dw", "dw_b", "ln_g", "ln_b", "w1", "b1", "w2", "b2", "gamma")),
+        p(normed), p(h), plans, None if ws is None else p(ws), _build.stream_ptr(x.device),
     )
     _build.check(lib, rc, "vocos_stack kernel")
     _COUNT.count += 1

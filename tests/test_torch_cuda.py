@@ -20,6 +20,7 @@ from gonova_tts_tpu_torch import ops
 from gonova_tts_tpu_torch.config import ModelConfig
 from gonova_tts_tpu_torch.models import tts
 from gonova_tts_tpu_torch.ops import convnext_block as cb_op
+from gonova_tts_tpu_torch.ops import gemm_tc as gemm_op
 from gonova_tts_tpu_torch.ops import mel_spectrogram as mel_op
 from gonova_tts_tpu_torch.ops import transformer_stack as ts_op
 from gonova_tts_tpu_torch.ops import vocos_stack as vs_op
@@ -156,3 +157,155 @@ def test_wrapper_raises_on_inputs_the_kernel_does_not_take(setup):
         ts_op.transformer_stack(x, torch.ones((1, 40), device=dev), packed, 4, window=16)
     with pytest.raises(ValueError):  # weights packed for another compute dtype
         ts_op.transformer_stack(x, torch.ones((1, 40), device=dev), packed, 4, bf16=True)
+
+
+# ------------------------------------------------------------------ the bf16 tensor-core GEMM
+
+# One bf16 ulp (2^-7 relative, about 0.8%) per rounding of the epilogue, plus 1e-2
+# absolute: the kernel and the plain version sum K in another order, which can move a
+# value across a bf16 rounding point. The bias and ReLU epilogues round once; the
+# others twice (the term, then the result). The ulp is taken of |output|, or, for the
+# two residual epilogues, of |output| + |resid|: the rounded term is at most that
+# large, and the sum may cancel.
+GEMM_RTOL, GEMM_ATOL = 2.0 ** -7, 1e-2
+EPILOGUES = [gemm_op.EPI_BIAS, gemm_op.EPI_BIAS_RELU, gemm_op.EPI_RESID_MASK, gemm_op.EPI_GELU,
+             gemm_op.EPI_GAMMA_RESID]
+
+
+def gemm_inputs(dev, rng, b, t, cin, n, taps):
+    bf = lambda x: torch.as_tensor(x.astype(np.float32), device=dev).bfloat16()  # noqa: E731
+    k = taps * cin
+    lengths = np.maximum(1, t - np.arange(b) * (t // 3))
+    return dict(
+        a=bf(rng.standard_normal((b, t, cin))), w=bf(rng.standard_normal((k, n)) / np.sqrt(k)),
+        bias=torch.as_tensor(rng.standard_normal(n).astype(np.float32), device=dev),
+        resid=bf(rng.standard_normal((b, t, n))),
+        mask=torch.as_tensor((np.arange(t)[None] < lengths[:, None]).astype(np.float32), device=dev),
+        gamma=torch.as_tensor(rng.standard_normal(n).astype(np.float32), device=dev),
+    )
+
+
+def run_gemm(fn, x, epi, taps):
+    return fn(x["a"], x["w"], epi, x["bias"], x["resid"], x["mask"], x["gamma"], taps)
+
+
+def assert_gemm_close(ours, plain, x, epi):
+    scale = plain.float().abs()
+    if epi in (gemm_op.EPI_RESID_MASK, gemm_op.EPI_GAMMA_RESID):
+        scale = scale + x["resid"].float().abs()
+    roundings = 1 if epi in (gemm_op.EPI_BIAS, gemm_op.EPI_BIAS_RELU) else 2
+    err = (ours.float() - plain.float()).abs()
+    assert bool((err <= GEMM_ATOL + roundings * GEMM_RTOL * scale).all()), float(err.max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [128, 192, 256, 1536])
+@pytest.mark.parametrize("t", [1, 50, 122, 320])
+@pytest.mark.parametrize("epi", EPILOGUES)
+@pytest.mark.parametrize("taps", [1, 3])
+def test_gemm_tc_matches_plain(setup, taps, epi, t, n):
+    dev, _, rng = setup
+    x = gemm_inputs(dev, rng, 2, t, 128, n, taps)
+    before = ops.launch_counts()["gemm_tc"]
+    ours = run_gemm(gemm_op.gemm_tc, x, epi, taps)
+    plain = run_gemm(gemm_op.gemm_tc_plain, x, epi, taps)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["gemm_tc"] == before + 1
+    assert ours.dtype == torch.bfloat16 and ours.shape == plain.shape == (2, t, n)
+    assert_gemm_close(ours, plain, x, epi)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,t,cin,n,taps,epi", [
+    (4, 64, 1024, 256, 3, gemm_op.EPI_RESID_MASK),   # conv-FFN2: K = 3072 split in three
+    (4, 320, 1024, 256, 3, gemm_op.EPI_RESID_MASK),
+    (1, 122, 1536, 512, 1, gemm_op.EPI_GAMMA_RESID),  # Vocos w2
+    (4, 320, 512, 1536, 1, gemm_op.EPI_GELU),         # Vocos w1
+    (16, 512, 512, 1536, 1, gemm_op.EPI_GELU),        # 128 x 128 tiles
+    (4, 512, 256, 1024, 3, gemm_op.EPI_BIAS_RELU),    # conv-FFN1
+    (4, 512, 256, 768, 1, gemm_op.EPI_BIAS),          # QKV
+])
+def test_gemm_tc_serving_products(setup, b, t, cin, n, taps, epi):
+    """The serving products at full width: against the plain version, and twice on
+    the same input bit for bit."""
+    dev, _, rng = setup
+    x = gemm_inputs(dev, rng, b, t, cin, n, taps)
+    ours = run_gemm(gemm_op.gemm_tc, x, epi, taps)
+    again = run_gemm(gemm_op.gemm_tc, x, epi, taps)
+    plain = run_gemm(gemm_op.gemm_tc_plain, x, epi, taps)
+    torch.cuda.synchronize()
+    assert torch.equal(ours, again)
+    assert_gemm_close(ours, plain, x, epi)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cin,n,taps,epi", [
+    (512, 1536, 1, gemm_op.EPI_GELU), (1536, 512, 1, gemm_op.EPI_GAMMA_RESID),
+    (256, 1024, 3, gemm_op.EPI_BIAS_RELU), (1024, 256, 3, gemm_op.EPI_RESID_MASK),
+])
+def test_gemm_tc_rows_do_not_depend_on_m(setup, cin, n, taps, epi):
+    """C(A)[:m] == C(A[:m]) bit for bit, and the same bits from every tile: a row's
+    sum depends on (N, K) alone. For the conv the prefix is of sequences (the batch);
+    for plain rows also of the rows of one sequence."""
+    dev, _, rng = setup
+    x = gemm_inputs(dev, rng, 4, 320, cin, n, taps)
+    whole = run_gemm(gemm_op.gemm_tc, x, epi, taps)
+    split = gemm_op.split_k(n, taps * cin)
+    for wgs, bn in gemm_op.TILES:
+        forced = gemm_op.gemm_tc(x["a"], x["w"], epi, x["bias"], x["resid"], x["mask"], x["gamma"], taps,
+                                 force_plan=(wgs, bn, split))
+        assert torch.equal(forced, whole), (wgs, bn)
+    first = {k: (v[:1] if k in ("a", "resid", "mask") else v) for k, v in x.items()}
+    assert torch.equal(run_gemm(gemm_op.gemm_tc, first, epi, taps), whole[:1])
+    if taps == 1:
+        rows = {k: (v[:1, :122] if k in ("a", "resid", "mask") else v) for k, v in x.items()}
+        assert torch.equal(run_gemm(gemm_op.gemm_tc, rows, epi, taps), whole[:1, :122])
+
+
+@pytest.mark.gpu
+def test_gemm_tc_raises_on_what_it_does_not_take(setup):
+    dev, _, rng = setup
+    x = gemm_inputs(dev, rng, 1, 16, 96, 128, 1)  # K per tap not a multiple of 64
+    with pytest.raises(ValueError):
+        run_gemm(gemm_op.gemm_tc, x, gemm_op.EPI_BIAS, 1)
+    x = gemm_inputs(dev, rng, 1, 16, 64, 100, 1)  # N not a multiple of 8
+    with pytest.raises(ValueError):
+        run_gemm(gemm_op.gemm_tc, x, gemm_op.EPI_BIAS, 1)
+    x = gemm_inputs(dev, rng, 1, 16, 64, 128, 1)
+    with pytest.raises(ValueError):  # float32 operands: the tensor-core kernel is bf16 only
+        gemm_op.gemm_tc(x["a"].float(), x["w"].float(), gemm_op.EPI_BIAS, x["bias"])
+
+
+@pytest.mark.gpu
+def test_transformer_stack_bf16_rows_do_not_depend_on_t(setup):
+    """A prefix-masked batch at T = 320 and the same sequences padded to T = 448 (other
+    tiles, other grids, more masked keys): the valid rows are bit-equal."""
+    dev, model, rng = setup
+    packed = {k: v.to(dev) for k, v in ts_op.pack_params(model.acoustic.decoder, torch.bfloat16).items()}
+    # No sequence fills T = 320: the frame after a sequence's last is then a masked
+    # frame at both lengths (at T = 320 a full sequence would meet the conv's zero edge).
+    lengths = np.array([300, 250, 97, 1])
+    x = torch.zeros((4, 448, 64), device=dev)
+    x[:, :320] = torch.as_tensor(rng.standard_normal((4, 320, 64)).astype(np.float32), device=dev)
+    mask = torch.as_tensor((np.arange(448)[None] < lengths[:, None]).astype(np.float32), device=dev)
+    x = x * mask[..., None]
+    short = ts_op.transformer_stack(x[:, :320].contiguous(), mask[:, :320].contiguous(), packed, 4, None, True)
+    long = ts_op.transformer_stack(x, mask, packed, 4, None, True)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(long.float()).all())
+    for i, n in enumerate(lengths):
+        assert torch.equal(short[i, :n], long[i, :n]), f"sequence {i}"
+
+
+@pytest.mark.gpu
+def test_bf16_stacks_raise_on_widths_the_tensor_core_gemm_does_not_take(setup):
+    dev, _, _ = setup
+    cfg = ModelConfig(d_model=96, n_heads=2, d_ff=128, encoder_layers=1, decoder_layers=1,
+                      vocos_dim=96, vocos_ff=256, vocos_layers=1)
+    model = tts.TTS(cfg, torch.Generator().manual_seed(0))
+    packed = {k: v.to(dev) for k, v in ts_op.pack_params(model.acoustic.encoder, torch.bfloat16).items()}
+    with pytest.raises(ValueError, match="multiple of 64"):  # K per tap = d_model = 96
+        ts_op.transformer_stack(torch.zeros((1, 32, 96), device=dev), torch.ones((1, 32), device=dev), packed, 2, bf16=True)
+    packed = {k: v.to(dev) for k, v in vs_op.pack_params(model.vocoder.blocks, torch.bfloat16).items()}
+    with pytest.raises(ValueError, match="multiple of 64"):
+        vs_op.vocos_stack(torch.zeros((1, 32, 96), device=dev), packed, bf16=True)
