@@ -17,8 +17,12 @@ Phases; any failure exits non-zero before the final line:
      is the same call replayed from a CUDA graph), and the least time the card could take.
      A bf16 decoder stack at T = 320 and the same sequences padded to T = 448 must
      give bit-equal valid rows (`shape_independent_bf16`).
+     The mel and the block cases also give `device_ms` and `matmul_ms`, the bare
+     products alone in one `torch.matmul` each (the block's two MLP products; the
+     mel's frames @ [wcos | wsin] in full f32): a yardstick, not `library_ms`.
      The single ConvNeXt block is also chained over the checkpoint's eight blocks,
-     with its launch count read, against the stack kernel.
+     with its launch count read: in f32 against the stack kernel, in bf16 (x and MLP,
+     the tensor-core route) against eight calls of its plain version.
   4. engine: the demo checkpoint (assets/checkpoints/demo_ema_f16.npz, full width,
      30.1 M parameters) in bf16 with both kernel switches on — batch one-graph and
      two-stage, streaming, a 128-token sentence whose decoder takes the plain
@@ -41,9 +45,10 @@ Bounds (max |error| unless named):
   two-stage vs one-graph, streamed vs one-shot: see ENGINE_BOUNDS;
   bf16 kernel path vs f32 plain path: relative L2 error of the audio at the same
     durations, BF16_VS_F32_REL_L2;
-  log-mel kernel: |error| <= MEL_ATOL + MEL_RTOL * |plain| (f32 summation order under
-    a log; the JAX kernel test's bound);
-  ConvNeXt block chained 8 times vs the stack kernel, f32: CHAIN_VS_STACK_BOUND;
+  log-mel kernel: |error| <= MEL_ATOL + MEL_RTOL * |plain| (f32-grade products, here
+    split TF32, under a log; the JAX kernel test's bound);
+  ConvNeXt block chained 8 times vs the stack kernel, f32: CHAIN_VS_STACK_BOUND; in
+    bf16 vs eight plain blocks: KERNEL_BF16_BOUND;
   voice path: see VOICE_BOUNDS.
 """
 
@@ -88,7 +93,9 @@ VOICE_BOUNDS = {
 VOICE_WAV = os.path.join("assets", "default_voice.wav")
 
 H100_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}  # dense tensor-core bf16; f32 off the tensor cores
+# Dense tensor-core bf16; f32 off the tensor cores; f32-grade products as split TF32 on
+# the tensor cores, three TF32 products each (495 / 3 TFLOP/s): the mel kernel's route.
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "tf32_split": 495e12 / 3}
 DEMO = os.path.join("assets", "checkpoints", "demo_ema_f16.npz")
 SENTENCES = [  # 25, 42, 45 and 60 tokens: one batch in the 64-token bucket
     "Hello there, how are you today?",
@@ -297,10 +304,14 @@ def vocos_cases(model, torch, dev, rng):
 def mel_cases(torch, dev, rng):
     """f32 only. Seeded noise [4, 32768]; the reference voice zero-padded to the
     engine's 10 s analysis buffer [1, 239872] (a silent tail: both floors); frame
-    counts 2, 127, 128, 129; and the hop=64 framing (n_fft / hop = 16)."""
+    counts 2, 127, 128, 129; and the hop=64 framing (n_fft / hop = 16). The bound is
+    taken at the split-TF32 rate (`bound_ms`) and, for the record, at the f32 rate of
+    the CUDA cores (`bound_ms_f32`)."""
     import numpy as np
 
+    from gonova_tts_tpu_torch.audio.stft import reflect_pad
     from gonova_tts_tpu_torch.ops import mel_spectrogram as mel
+    from gonova_tts_tpu_torch.ops.gemm_tc_sweep import graph_ms
     from gonova_tts_tpu_torch.utils import read_wav
 
     voice, sr = read_wav(VOICE_WAV)
@@ -327,13 +338,18 @@ def mel_cases(torch, dev, rng):
         frames = x.shape[0] * (x.shape[1] // hop)
         flops = frames * (2 * 2 * n_fft * n_bins + 2 * n_bins * n_mels)
         moved = nbytes(x, out) + 4 * (2 * n_fft * n_bins + n_bins * n_mels)
-        bound_ms, bound_by = bound(moved, flops, "float32")
+        bound_ms, bound_by = bound(moved, flops, "tf32_split")
+        frames = reflect_pad(x, n_fft, hop).unfold(-1, n_fft, hop)[:, : x.shape[1] // hop].reshape(-1, n_fft).contiguous()
+        wcat = torch.cat(mel.folded_bases(n_fft, 1024, dev), dim=1)
         cases.append({
             "case": name, "dtype": "float32", "max_abs_err": float(err.max()),
             "tolerance": f"{MEL_ATOL} + {MEL_RTOL} * |plain|", "ok": ok,
             "ms": cuda_ms(lambda: mel.mel_spectrogram(x, hop_length=hop), 10),
+            "device_ms": graph_ms(lambda: mel.mel_spectrogram(x, hop_length=hop), 10),
             "plain_ms": cuda_ms(lambda: mel.mel_spectrogram_plain(x, hop_length=hop), 10),
-            "bound_ms": bound_ms, "bound_by": bound_by, "gflop": flops / 1e9,
+            "matmul_ms": graph_ms(lambda: torch.matmul(frames, wcat), 10),
+            "bound_ms": bound_ms, "bound_by": bound_by, "bound_ms_f32": bound(moved, flops, "float32")[0],
+            "gflop": flops / 1e9,
         })
     return cases
 
@@ -347,6 +363,7 @@ def convnext_cases(model, torch, dev, rng):
     """The checkpoint's block 0 at B=4 T=320 and B=1 T=300, for (x f32, MLP f32),
     (x f32, MLP bf16) and (x bf16, MLP bf16)."""
     from gonova_tts_tpu_torch.ops import convnext_block as cb
+    from gonova_tts_tpu_torch.ops.gemm_tc_sweep import graph_ms
 
     w = block_weights(model.vocoder.blocks[0])
     cases = []
@@ -365,11 +382,16 @@ def convnext_cases(model, torch, dev, rng):
             moved = nbytes(x, out) + esz * 2 * c * f + 4 * (7 * c + 5 * c + f)
             mlp = "bfloat16" if bf16 else "float32"
             bound_ms, bound_by = bound(moved, flops, mlp)
+            md = torch.bfloat16 if bf16 else torch.float32
+            rows, w1, w2 = torch.zeros((b * t, c), dtype=md, device=dev), w[4].to(md), w[6].to(md)
+            hid = torch.zeros((b * t, f), dtype=md, device=dev)
             cases.append({
                 "case": f"B={b} T={t}", "dtype": f"x {name_of(x_dt)}, mlp {mlp}", "max_abs_err": err,
                 "tolerance": tol, "ok": ok,
                 "ms": cuda_ms(lambda: cb.convnext_block(x, *w, bf16=bf16), 10),
+                "device_ms": graph_ms(lambda: cb.convnext_block(x, *w, bf16=bf16), 10),
                 "plain_ms": cuda_ms(lambda: cb.convnext_block_plain(x, *w, bf16=bf16), 10),
+                "matmul_ms": graph_ms(lambda: (torch.matmul(rows, w1), torch.matmul(hid, w2)), 10),
                 "bound_ms": bound_ms, "bound_by": bound_by, "gflop": flops / 1e9,
             })
     return cases
@@ -395,6 +417,31 @@ def convnext_chain(model, torch, dev, rng):
     ok = launches == len(model.vocoder.blocks) and bool(torch.isfinite(y).all()) and err <= CHAIN_VS_STACK_BOUND
     return {"case": "8 blocks chained vs vocos_stack B=4 T=320", "dtype": "float32", "max_abs_err": err,
             "tolerance": CHAIN_VS_STACK_BOUND, "launches": launches, "ok": ok}
+
+
+def convnext_chain_bf16(model, torch, dev, rng):
+    """The same chain with x and the MLP in bf16, the tensor-core route: launch counts
+    from zero (the block's and the shared GEMM's), against eight plain blocks."""
+    from gonova_tts_tpu_torch import ops
+    from gonova_tts_tpu_torch.ops import convnext_block as cb
+
+    x = torch.as_tensor(rng.standard_normal((4, 320, 512)).astype("float32"), device=dev).bfloat16()
+    ops.reset_launch_counts()
+    y = x
+    for blk in model.vocoder.blocks:
+        y = cb.convnext_block(y, *block_weights(blk), bf16=True)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    ref = x
+    for blk in model.vocoder.blocks:
+        ref = cb.convnext_block_plain(ref, *block_weights(blk), bf16=True)
+    err = float((y.float() - ref.float()).abs().max())
+    n = len(model.vocoder.blocks)
+    ok = (counts["convnext_block"] == n and counts["gemm_tc"] == 2 * n and y.dtype == torch.bfloat16
+          and bool(torch.isfinite(y.float()).all()) and err <= KERNEL_BF16_BOUND)
+    return {"case": "8 blocks chained vs 8 plain blocks B=4 T=320", "dtype": "x bfloat16, mlp bfloat16",
+            "max_abs_err": err, "tolerance": KERNEL_BF16_BOUND, "launches": counts["convnext_block"],
+            "gemm_tc_launches": counts["gemm_tc"], "ok": ok}
 
 
 # ------------------------------------------------------------------ phase 4
@@ -680,6 +727,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device", 3)
     dev = resolve_device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False  # the default, stated: f32 products and yardsticks in full f32
     smi = smi_line()
     print(f"device: {torch.cuda.get_device_name(0)} | {smi} | torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
 
@@ -701,7 +749,8 @@ def main() -> None:
     mel_cs = mel_cases(torch, dev, rng)
     cb_cases = convnext_cases(model, torch, dev, rng)
     chain = convnext_chain(model, torch, dev, rng)
-    for c in ts_cases + vs_cases + mel_cs + cb_cases + [chain]:
+    chain_bf16 = convnext_chain_bf16(model, torch, dev, rng)
+    for c in ts_cases + vs_cases + mel_cs + cb_cases + [chain, chain_bf16]:
         print("kernel case: " + json.dumps(c), flush=True)
     kernel_checks = {"shape_independent_bf16": shape_independent_bf16(model, torch, dev, rng)}
     print("kernel checks: " + json.dumps(kernel_checks), flush=True)
@@ -714,11 +763,11 @@ def main() -> None:
         **report["voice_path"]), flush=True)
     mel_voice = next(c for c in mel_cs if c["case"] == "voice B=1 T=239872")
     print("mel kernel at the voice path's shape: " + json.dumps(
-        {k: mel_voice[k] for k in ("ms", "plain_ms", "bound_ms", "gflop")}), flush=True)
+        {k: mel_voice[k] for k in ("ms", "device_ms", "plain_ms", "matmul_ms", "bound_ms", "gflop")}), flush=True)
 
     def entry(name, replaces, cases, main_case, dtype, n_launches, **extra):
         """`launches` is the count from the kernel's main path: the engine run for the
-        two stacks, the voice run for the mel, the chained-block run for the block."""
+        two stacks, the voice run for the mel, the two chained-block runs for the block."""
         rep = next(c for c in cases if c["case"] == main_case and c["dtype"] == dtype)
         return {
             "name": name, "route": "cuda", "source": f"gonova_tts_tpu_torch/csrc/{name}.cu",
@@ -726,6 +775,7 @@ def main() -> None:
             "max_abs_err": max(c["max_abs_err"] for c in cases),
             "ms": rep["ms"], "plain_ms": rep["plain_ms"], "bound_ms": rep["bound_ms"],
             "bound_by": rep["bound_by"], "library_ms": None,
+            **{k: rep[k] for k in ("device_ms", "matmul_ms") if k in rep},
             "at": f"{main_case} {dtype}", **extra, "cases": cases,
         }
 
@@ -738,10 +788,13 @@ def main() -> None:
               launches_voice_path=voice_launches.get("vocos_stack", 0)),
         entry("mel_spectrogram", "gonova_tts_tpu/ops/mel_kernel.py:151", mel_cs,
               "voice B=1 T=239872", "float32", voice_launches.get("mel_spectrogram", 0)),
-        entry("convnext_block", "gonova_tts_tpu/ops/convnext_kernel.py:146", cb_cases + [chain],
-              "B=4 T=320", "x bfloat16, mlp bfloat16", chain["launches"]),
+        entry("convnext_block", "gonova_tts_tpu/ops/convnext_kernel.py:146", cb_cases + [chain, chain_bf16],
+              "B=4 T=320", "x bfloat16, mlp bfloat16", chain["launches"] + chain_bf16["launches"],
+              launches_f32_chain=chain["launches"], launches_bf16_chain=chain_bf16["launches"],
+              gemm_tc_launches_bf16_chain=chain_bf16["gemm_tc_launches"]),
     ]
-    bad = [f"{c['case']} {c['dtype']}" for c in gm_cases + ts_cases + vs_cases + mel_cs + cb_cases + [chain] if not c["ok"]]
+    bad = [f"{c['case']} {c['dtype']}" for c in gm_cases + ts_cases + vs_cases + mel_cs + cb_cases + [chain, chain_bf16]
+           if not c["ok"]]
     bad += [k for k, v in {**kernel_checks, **checks, **voice_checks}.items() if not v]
     bad += [f"{k['name']} never launched on its path" for k in kernels if k["launches"] <= 0]
     if bad:

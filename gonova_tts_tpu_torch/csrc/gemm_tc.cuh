@@ -1,7 +1,8 @@
-// bf16 tensor-core GEMM for Hopper (sm_90a), shared by the transformer stack and
-// the Vocos stack: C[M, N] = epilogue(A'[M, K] @ W[K, N]) with the A modes, the
-// epilogues and the rounding points of port::gemm (common.cuh), which stays the
-// float32 path.
+// bf16 tensor-core GEMM for Hopper (sm_90a), shared by the transformer stack, the
+// Vocos stack and the single ConvNeXt block: C[M, N] = epilogue(A'[M, K] @ W[K, N])
+// with the A modes, the epilogues and the rounding points of port::gemm (common.cuh),
+// which stays the float32 path. C and the residual are bf16, or float32 where the
+// single block's activation is (the rounding to the output type is then exact).
 //
 // Replaces the matrix products inside
 // gonova_tts_tpu/ops/transformer_stack_kernel.py::transformer_stack_pallas and
@@ -194,20 +195,27 @@ template <> struct Wgmma<128> {
 
 // ------------------------------------------------------------------ epilogue
 
-// v = acc + bias[n] in f32; r = resid[m, n]; the rounding points of common.cuh.
+// v = acc + bias[n] in f32; r = resid[m, n]; the rounding points of common.cuh, to the
+// output type TO (bf16, or float, where the rounding is the identity). EPI_GELU_F32 is
+// EPI_GELU with F32_GELU set, a compile-time choice: a sixth case in this runtime
+// switch changed how the unrolled epilogue compiled, and every unsplit product of the
+// stacks took ~4 us more on the H100 (chip_smoke.py's `gemm case` lines).
+template <typename TO, bool F32_GELU>
 __device__ __forceinline__ float apply_epilogue(int epi, float v, float r, float mask_m, float gamma_n) {
   switch (epi) {
     case EPI_BIAS: return v;
     case EPI_BIAS_RELU: return fmaxf(v, 0.f);
-    case EPI_RESID_MASK: return rnd<bf16>(r + rnd<bf16>(v)) * mask_m;
-    case EPI_GELU: return gelu_tanh(rnd<bf16>(v));
-    default: return r + rnd<bf16>(v * gamma_n);  // EPI_GAMMA_RESID
+    case EPI_RESID_MASK: return rnd<TO>(r + rnd<TO>(v)) * mask_m;
+    case EPI_GELU: return gelu_tanh(F32_GELU ? v : rnd<TO>(v));
+    default: return r + rnd<TO>(v * gamma_n);  // EPI_GAMMA_RESID
   }
 }
 
+// C and resid are TO [M, N]; everything else as for bf16.
+template <typename TO>
 struct Params {
-  bf16* C;               // [M, N]
-  const bf16* resid;     // [M, N] or null; may alias C
+  TO* C;                 // [M, N]
+  const TO* resid;       // [M, N] or null; may alias C
   const float* bias;     // [N]
   const float* mask;     // [M] or null
   const float* gamma;    // [N] or null
@@ -215,15 +223,39 @@ struct Params {
   int M, N, T_len, Cin, taps, split, epi;
 };
 
+// Two adjacent elements (n, n + 1) of a TO row: loaded raw, widened to f32, stored
+// rounded to nearest even.
+template <typename TO> struct Pair;
+template <> struct Pair<bf16> {
+  using raw = uint32_t;
+  static __device__ __forceinline__ raw load(const bf16* p) { return *reinterpret_cast<const uint32_t*>(p); }
+  static __device__ __forceinline__ float2 widen(raw r) {
+    const __nv_bfloat162 v = *reinterpret_cast<const __nv_bfloat162*>(&r);
+    return make_float2(__bfloat162float(v.x), __bfloat162float(v.y));
+  }
+  static __device__ __forceinline__ void store(bf16* p, float2 v) {
+    __nv_bfloat162 out;
+    out.x = __float2bfloat16_rn(v.x);
+    out.y = __float2bfloat16_rn(v.y);
+    *reinterpret_cast<__nv_bfloat162*>(p) = out;
+  }
+};
+template <> struct Pair<float> {
+  using raw = float2;
+  static __device__ __forceinline__ raw load(const float* p) { return *reinterpret_cast<const float2*>(p); }
+  static __device__ __forceinline__ float2 widen(raw r) { return r; }
+  static __device__ __forceinline__ void store(float* p, float2 v) { *reinterpret_cast<float2*>(p) = v; }
+};
+
 // Two adjacent outputs (m, n) and (m, n + 1), n even, from their f32 sums a, the
-// bias pair b, resid's pair r (raw bf16x2), the row's mask value and the gamma pair
-// g: the epilogue, as the bf16x2 to store.
-__device__ __forceinline__ __nv_bfloat162 finish_pair(int epi, float2 a, float2 b, uint32_t r, float mk, float2 g) {
-  const __nv_bfloat162 rr = *reinterpret_cast<const __nv_bfloat162*>(&r);
-  __nv_bfloat162 out;
-  out.x = __float2bfloat16_rn(apply_epilogue(epi, a.x + b.x, __bfloat162float(rr.x), mk, g.x));
-  out.y = __float2bfloat16_rn(apply_epilogue(epi, a.y + b.y, __bfloat162float(rr.y), mk, g.y));
-  return out;
+// bias pair b, resid's raw pair r, the row's mask value and the gamma pair g: the
+// epilogue, stored to p.
+template <typename TO, bool F32_GELU>
+__device__ __forceinline__ void finish_pair(TO* p, int epi, float2 a, float2 b, typename Pair<TO>::raw r, float mk,
+                                            float2 g) {
+  const float2 rr = Pair<TO>::widen(r);
+  Pair<TO>::store(p, make_float2(apply_epilogue<TO, F32_GELU>(epi, a.x + b.x, rr.x, mk, g.x),
+                                 apply_epilogue<TO, F32_GELU>(epi, a.y + b.y, rr.y, mk, g.y)));
 }
 
 // ------------------------------------------------------------------ the kernel
@@ -231,10 +263,10 @@ __device__ __forceinline__ __nv_bfloat162 finish_pair(int epi, float2 a, float2 
 // Block: WGS consumer warpgroups (warps 0 .. 4*WGS-1, 64 output rows each) and one
 // producer warp. Output tile (64*WGS) x BN at rows t0.. of sequence b, columns n0..;
 // K iterations [it0, it1) of this block's split.
-template <int WGS, int BN, int TC_STAGES>
+template <typename TO, bool F32_GELU, int WGS, int BN, int TC_STAGES>
 __global__ void __launch_bounds__(WGS * 128 + 32, WGS == 2 ? 2 : 1)  // 128 x 128: two blocks an SM
 gemm_tc_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant__ CUtensorMap map_w,
-               const Params p) {
+               const Params<TO> p) {
   constexpr int BM = 64 * WGS;
   constexpr int A_BYTES = BM * TC_BK * 2, W_BYTES = BN * TC_BK * 2;
   extern __shared__ uint8_t smem_raw[];
@@ -331,24 +363,24 @@ gemm_tc_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant_
       continue;
     }
     const float mk = epi == EPI_RESID_MASK ? p.mask[m] : 0.f;
-    const bf16* rrow = has_resid ? p.resid + (size_t)m * p.N : p.C;  // never read when !has_resid
-    bf16* crow = p.C + (size_t)m * p.N;
+    const TO* rrow = has_resid ? p.resid + (size_t)m * p.N : p.C;  // never read when !has_resid
+    TO* crow = p.C + (size_t)m * p.N;
 #pragma unroll
     for (int j0 = 0; j0 < BN / 8; j0 += EPI_BATCH) {
       float2 bv[EPI_BATCH], gv[EPI_BATCH];
-      uint32_t rv[EPI_BATCH];
+      typename Pair<TO>::raw rv[EPI_BATCH];
 #pragma unroll
       for (int u = 0; u < EPI_BATCH; ++u) {
         const int n = min(col0 + (j0 + u) * 8, p.N - 2);
         bv[u] = *reinterpret_cast<const float2*>(p.bias + n);
         gv[u] = epi == EPI_GAMMA_RESID ? *reinterpret_cast<const float2*>(p.gamma + n) : make_float2(0.f, 0.f);
-        rv[u] = has_resid ? *reinterpret_cast<const uint32_t*>(rrow + n) : 0u;
+        rv[u] = has_resid ? Pair<TO>::load(rrow + n) : typename Pair<TO>::raw{};
       }
 #pragma unroll
       for (int u = 0; u < EPI_BATCH; ++u) {
         const int j = j0 + u, n = col0 + j * 8;
         const float2 a = make_float2(acc[4 * j + 2 * half], acc[4 * j + 2 * half + 1]);
-        if (n < p.N) *reinterpret_cast<__nv_bfloat162*>(crow + n) = finish_pair(epi, a, bv[u], rv[u], mk, gv[u]);
+        if (n < p.N) finish_pair<TO, F32_GELU>(crow + n, epi, a, bv[u], rv[u], mk, gv[u]);
       }
     }
   }
@@ -356,7 +388,8 @@ gemm_tc_kernel(const __grid_constant__ CUtensorMap map_a, const __grid_constant_
 
 // Second pass of a split product: the partial sums added in split order, then the
 // epilogue. One thread per pair of adjacent columns.
-__global__ void splitk_epilogue_kernel(const Params p) {
+template <typename TO, bool F32_GELU>
+__global__ void splitk_epilogue_kernel(const Params<TO> p) {
   const size_t pair = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
   const size_t total = (size_t)p.M * p.N;
   if (2 * pair >= total) return;
@@ -369,11 +402,10 @@ __global__ void splitk_epilogue_kernel(const Params p) {
   }
   const size_t o = (size_t)m * p.N + n;
   const bool has_resid = p.epi == EPI_RESID_MASK || p.epi == EPI_GAMMA_RESID;
-  const uint32_t r = has_resid ? *reinterpret_cast<const uint32_t*>(p.resid + o) : 0u;
+  const typename Pair<TO>::raw r = has_resid ? Pair<TO>::load(p.resid + o) : typename Pair<TO>::raw{};
   const float mk = p.epi == EPI_RESID_MASK ? p.mask[m] : 0.f;
   const float2 g = p.epi == EPI_GAMMA_RESID ? *reinterpret_cast<const float2*>(p.gamma + n) : make_float2(0.f, 0.f);
-  *reinterpret_cast<__nv_bfloat162*>(p.C + o) =
-      finish_pair(p.epi, sum, *reinterpret_cast<const float2*>(p.bias + n), r, mk, g);
+  finish_pair<TO, F32_GELU>(p.C + o, p.epi, sum, *reinterpret_cast<const float2*>(p.bias + n), r, mk, g);
 }
 
 // ------------------------------------------------------------------ host side
@@ -423,36 +455,55 @@ struct Plan {
 // kernels, and so needs its own opted_in (a static of an inline function would be
 // one symbol for the whole process).
 namespace {
-template <int WGS, int BN>
-int launch(const CUtensorMap& map_a, const CUtensorMap& map_w, const Params& p, int B, cudaStream_t s) {
+template <typename TO, bool F32_GELU, int WGS, int BN>
+int launch(const CUtensorMap& map_a, const CUtensorMap& map_w, const Params<TO>& p, int B, cudaStream_t s) {
   constexpr int BM = 64 * WGS;
   constexpr int TC_STAGES = (BM + BN) * TC_BK * 2 > 24 * 1024 ? 3 : 4;
   constexpr int SMEM = TC_STAGES * (BM + BN) * TC_BK * 2 + 2 * TC_STAGES * 8 + 1024;
   static bool opted_in = false;
   if (!opted_in) {
-    cudaFuncSetAttribute(gemm_tc_kernel<WGS, BN, TC_STAGES>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+    cudaFuncSetAttribute(gemm_tc_kernel<TO, F32_GELU, WGS, BN, TC_STAGES>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                         SMEM);
     PORT_RETURN_IF_ERROR();
     opted_in = true;
   }
   dim3 grid((p.N + BN - 1) / BN, (p.T_len + BM - 1) / BM, B * p.split);
-  gemm_tc_kernel<WGS, BN, TC_STAGES><<<grid, WGS * 128 + 32, SMEM, s>>>(map_a, map_w, p);
+  gemm_tc_kernel<TO, F32_GELU, WGS, BN, TC_STAGES><<<grid, WGS * 128 + 32, SMEM, s>>>(map_a, map_w, p);
   PORT_RETURN_IF_ERROR();
+  return 0;
+}
+
+// The tile's kernel, then a split product's second pass.
+template <typename TO, bool F32_GELU>
+int run(const CUtensorMap& map_a, const CUtensorMap& map_w, const Params<TO>& p, Plan plan, int B, cudaStream_t s) {
+  int rc;
+  if (plan.wgs == 1 && plan.bn == 64) rc = launch<TO, F32_GELU, 1, 64>(map_a, map_w, p, B, s);
+  else if (plan.wgs == 1 && plan.bn == 128) rc = launch<TO, F32_GELU, 1, 128>(map_a, map_w, p, B, s);
+  else if (plan.wgs == 2 && plan.bn == 128) rc = launch<TO, F32_GELU, 2, 128>(map_a, map_w, p, B, s);
+  else return (int)cudaErrorInvalidConfiguration;
+  if (rc) return rc;
+  if (p.split > 1) {
+    const size_t pairs = (size_t)p.M * p.N / 2;
+    splitk_epilogue_kernel<TO, F32_GELU><<<(unsigned)((pairs + 255) / 256), 256, 0, s>>>(p);
+    PORT_RETURN_IF_ERROR();
+  }
   return 0;
 }
 }  // namespace
 
 // C = epilogue(A' @ Wt^T). A [B, T_len, Cin] bf16 (taps == 1: A' = A; taps == 3: the
 // k=3 SAME conv's implicit im2col, K = 3 * Cin), Wt [N, taps * Cin] bf16, C and
-// resid [B * T_len, N] bf16, ws f32 [split, B * T_len, N] when plan.split > 1.
-// Needs Cin % 64 == 0, N % 8 == 0, (taps * Cin / 64) % split == 0: the Python
-// wrapper checks and raises. Returns a cudaError_t code.
-inline int gemm_tc(const bf16* A, const bf16* Wt, bf16* C, int B, int T_len, int Cin, int taps, int N, int epi,
-                   const float* bias, const bf16* resid, const float* mask, const float* gamma, float* ws,
-                   Plan plan, cudaStream_t s) {
+// resid [B * T_len, N] in TO (bf16 or float), ws f32 [split, B * T_len, N] when
+// plan.split > 1. Needs Cin % 64 == 0, N % 8 == 0, (taps * Cin / 64) % split == 0: the
+// Python wrapper checks and raises. Returns a cudaError_t code.
+template <typename TO>
+inline int gemm_tc(const bf16* A, const bf16* Wt, TO* C, int B, int T_len, int Cin, int taps, int N, int epi,
+                   const float* bias, const typename same_type<TO>::type* resid, const float* mask,
+                   const float* gamma, float* ws, Plan plan, cudaStream_t s) {
   const int K = taps * Cin;
   if (Cin % TC_BK || N % 8 || plan.split < 1 || (K / TC_BK) % plan.split || (taps != 1 && taps != 3))
     return (int)cudaErrorInvalidValue;
-  Params p;
+  Params<TO> p;
   p.C = C; p.resid = resid; p.bias = bias; p.mask = mask; p.gamma = gamma; p.ws = ws;
   p.M = B * T_len; p.N = N; p.T_len = T_len; p.Cin = Cin; p.taps = taps; p.split = plan.split; p.epi = epi;
   const int bm = 64 * plan.wgs;
@@ -463,18 +514,12 @@ inline int gemm_tc(const bf16* A, const bf16* Wt, bf16* C, int B, int T_len, int
     return (int)cudaErrorInvalidPitchValue;
   if (!encode_map(&map_w, Wt, 2, (uint64_t)K, (uint64_t)N, 1, (uint32_t)plan.bn))
     return (int)cudaErrorInvalidTexture;
-  int rc;
-  if (plan.wgs == 1 && plan.bn == 64) rc = launch<1, 64>(map_a, map_w, p, B, s);
-  else if (plan.wgs == 1 && plan.bn == 128) rc = launch<1, 128>(map_a, map_w, p, B, s);
-  else if (plan.wgs == 2 && plan.bn == 128) rc = launch<2, 128>(map_a, map_w, p, B, s);
-  else return (int)cudaErrorInvalidConfiguration;
-  if (rc) return rc;
-  if (plan.split > 1) {
-    const size_t pairs = (size_t)p.M * N / 2;
-    splitk_epilogue_kernel<<<(unsigned)((pairs + 255) / 256), 256, 0, s>>>(p);
-    PORT_RETURN_IF_ERROR();
+  // EPI_GELU_F32 runs as EPI_GELU in the kernels compiled with F32_GELU.
+  if (epi == EPI_GELU_F32) {
+    p.epi = EPI_GELU;
+    return run<TO, true>(map_a, map_w, p, plan, B, s);
   }
-  return 0;
+  return run<TO, false>(map_a, map_w, p, plan, B, s);
 }
 
 }  // namespace tc

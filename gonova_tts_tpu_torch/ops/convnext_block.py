@@ -4,8 +4,12 @@ Replaces `gonova_tts_tpu/ops/convnext_kernel.py` `convnext_block_pallas`, with i
 signature. No model path calls the single-block kernel (the vocoder runs the whole
 stack through `vocos_stack`); it is kept as the JAX package keeps it, as the
 one-block form of the vocoder's hot loop. The kernel is `csrc/convnext_block.cu`;
-its source note says what bounds it on the H100 (the two MLP GEMMs: operations)
-and where it differs from one iteration of the stack kernel.
+its source note says what bounds it on the H100 (the two MLP products: operations)
+and where it differs from one iteration of the stack kernel. With bf16 MLP operands
+both products run on the tensor-core GEMM of `csrc/gemm_tc.cuh` (planned by
+`gemm_tc.plan`; C and F multiples of 64), reading [N, K] bf16 copies of w1 and w2
+that are made once per weight tensor and cached; with f32 MLP operands they stay on
+the CUDA cores.
 
 `convnext_block_plain` computes the same function in PyTorch, staged as the Pallas
 kernel stages it: f32 depthwise taps and LN; the LN output cast to the MLP dtype
@@ -17,28 +21,39 @@ dtype before the residual add. The activation dtype is x's own, whatever `bf16`.
 from __future__ import annotations
 
 import ctypes
+import weakref
+from typing import Dict
 
 import torch
 import torch.nn.functional as F
 
-from . import counter
+from . import counter, gemm_tc
 
 _COUNT = counter("convnext_block")
 # convnext_block_forward(x_dtype, mlp_dtype, B, T, C, F, eps, x, out, 9 weights,
-#                        2 scratch buffers, stream)
-_SIGNATURE = [ctypes.c_int] * 6 + [ctypes.c_float] + [ctypes.c_void_p] * 14
+#                        2 scratch buffers, plans, workspace, stream)
+_SIGNATURE = [ctypes.c_int] * 6 + [ctypes.c_float] + [ctypes.c_void_p] * 16
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_TC_WEIGHTS: Dict[int, tuple] = {}  # id(w) -> (weakref to w, w._version, bf16 [N, K] copy)
+_TC_WEIGHTS_MAX = 64
+_PLANS: Dict[tuple, tuple] = {}
 
 
-def convnext_block_plain(x, dw, dw_b, ln_g, ln_b, w1, b1, w2, b2, gamma, eps: float = 1e-5, bf16: bool = True):
-    md = torch.bfloat16 if bf16 else torch.float32
+def dwconv_ln_plain(x, dw, dw_b, ln_g, ln_b, eps: float, md: torch.dtype) -> torch.Tensor:
+    """The block's first half: f32 depthwise k=7 conv (zero edges) + bias, f32 LN,
+    cast to the MLP dtype `md`."""
     c = x.shape[-1]
     k = dw.shape[0]
     w = dw.float().t()[:, None, :]  # [C, 1, k]
     acc = F.conv1d(x.float().transpose(1, 2), w, padding=k // 2, groups=c).transpose(1, 2) + dw_b.float()
     mean = acc.mean(-1, keepdim=True)
     var = ((acc - mean) ** 2).mean(-1, keepdim=True)
-    normed = ((acc - mean) * torch.rsqrt(var + eps) * ln_g.float() + ln_b.float()).to(md)
+    return ((acc - mean) * torch.rsqrt(var + eps) * ln_g.float() + ln_b.float()).to(md)
+
+
+def convnext_block_plain(x, dw, dw_b, ln_g, ln_b, w1, b1, w2, b2, gamma, eps: float = 1e-5, bf16: bool = True):
+    md = torch.bfloat16 if bf16 else torch.float32
+    normed = dwconv_ln_plain(x, dw, dw_b, ln_g, ln_b, eps, md)
     h = normed.float() @ w1.to(md).float() + b1.float()
     h = F.gelu(h, approximate="tanh").to(md)
     h = h.float() @ w2.to(md).float() + b2.float()
@@ -54,6 +69,36 @@ def convnext_block(x, dw, dw_b, ln_g, ln_b, w1, b1, w2, b2, gamma, eps: float = 
     return _launch(x, dw, dw_b, ln_g, ln_b, w1, b1, w2, b2, gamma, eps, bf16)
 
 
+def tc_weight(w: torch.Tensor) -> torch.Tensor:
+    """The bf16 [N, K] copy of a [K, N] MLP weight that the tensor-core GEMM reads,
+    made once per tensor object and kept until it is written to (its `_version`).
+    Keyed on the object, not on its address: a freed weight's memory is soon another
+    weight's, at version 0 and of the same shape."""
+    hit = _TC_WEIGHTS.get(id(w))
+    if hit is None or hit[0]() is not w or hit[1] != w._version:
+        if len(_TC_WEIGHTS) >= _TC_WEIGHTS_MAX:
+            _TC_WEIGHTS.clear()
+        hit = (weakref.ref(w), w._version, w.detach().to(torch.bfloat16).t().contiguous())
+        _TC_WEIGHTS[id(w)] = hit
+    return hit[2]
+
+
+def _f32(v: torch.Tensor) -> torch.Tensor:
+    """v as a contiguous float32 tensor, v itself when it is one already."""
+    return v if v.dtype == torch.float32 and v.is_contiguous() else v.detach().float().contiguous()
+
+
+def _plans(rows: int, c: int, f: int):
+    """(ctypes int[6], workspace elements or 0): the plans of w1 and w2 for `rows`
+    rows, as the C entry point takes them, cached per shape."""
+    key = (rows, c, f)
+    if key not in _PLANS:
+        tiles = [gemm_tc.plan(1, rows, f, c), gemm_tc.plan(1, rows, c, f)]
+        ws = max([pl[2] * rows * n for pl, n in zip(tiles, (f, c)) if pl[2] > 1], default=0)
+        _PLANS[key] = ((ctypes.c_int * 6)(*(v for pl in tiles for v in pl)), ws)
+    return _PLANS[key]
+
+
 def _launch(x, dw, dw_b, ln_g, ln_b, w1, b1, w2, b2, gamma, eps, bf16):
     from . import _build
 
@@ -65,6 +110,8 @@ def _launch(x, dw, dw_b, ln_g, ln_b, w1, b1, w2, b2, gamma, eps, bf16):
     problems = []
     if c % 16 or f % 16 or c > 1024:
         problems.append(f"C={c} and F={f} must be multiples of 16, C <= 1024")
+    if bf16:  # the tensor-core GEMM: K of both products a multiple of 64
+        problems += gemm_tc.problems(c, f) + gemm_tc.problems(f, c)
     if tuple(dw.shape) != (7, c):
         problems.append(f"dw {tuple(dw.shape)} != (7, {c})")
     if tuple(w1.shape) != (c, f) or tuple(w2.shape) != (f, c):
@@ -77,9 +124,15 @@ def _launch(x, dw, dw_b, ln_g, ln_b, w1, b1, w2, b2, gamma, eps, bf16):
 
     lib = _build.load("convnext_block", {"convnext_block_forward": _SIGNATURE})
     x = x.contiguous()
-    vec = lambda v: v.detach().float().contiguous()  # noqa: E731
-    dw, dw_b, ln_g, ln_b, b1, b2, gamma = map(vec, (dw, dw_b, ln_g, ln_b, b1, b2, gamma))
-    w1, w2 = w1.detach().to(md).contiguous(), w2.detach().to(md).contiguous()
+    dw, dw_b, ln_g, ln_b, b1, b2, gamma = map(_f32, (dw, dw_b, ln_g, ln_b, b1, b2, gamma))
+    plans, ws = None, None
+    if bf16:  # the [N, K] copies, both products' tile and split, a split's workspace
+        w1, w2 = tc_weight(w1), tc_weight(w2)
+        plans, ws_elems = _plans(b * t, c, f)
+        if ws_elems:
+            ws = torch.empty((ws_elems,), dtype=torch.float32, device=x.device)
+    else:
+        w1, w2 = _f32(w1), _f32(w2)
     out = torch.empty_like(x)
     normed = torch.empty((b * t, c), dtype=md, device=x.device)
     h = torch.empty((b * t, f), dtype=md, device=x.device)
@@ -87,8 +140,10 @@ def _launch(x, dw, dw_b, ln_g, ln_b, w1, b1, w2, b2, gamma, eps, bf16):
     rc = lib.convnext_block_forward(
         _DTYPE_CODE[x.dtype], _DTYPE_CODE[md], b, t, c, f, float(eps), p(x), p(out),
         *(p(v) for v in (dw, dw_b, ln_g, ln_b, w1, b1, w2, b2, gamma)),
-        p(normed), p(h), _build.stream_ptr(x.device),
+        p(normed), p(h), plans, None if ws is None else p(ws), _build.stream_ptr(x.device),
     )
     _build.check(lib, rc, "convnext_block kernel")
     _COUNT.count += 1
+    if bf16:  # the library launched the shared GEMM's kernel twice
+        counter("gemm_tc").count += 2
     return out

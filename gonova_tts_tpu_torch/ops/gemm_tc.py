@@ -12,13 +12,14 @@ the stacks. It is a part of those two kernels, not a kernel of its own path.
 `taps == 1`: A' = A, the rows of `[B, T, Cin]`. `taps == 3`: the k=3 SAME conv as one
 product over K = 3 * Cin, row (b, t) of A' being [A[b, t-1], A[b, t], A[b, t+1]] with
 zero rows past each sequence's ends. Epilogues, v = acc + bias in f32, `cd` the
-compute dtype:
+output dtype (A's, bf16, unless `out_dtype` is float32; resid is in it too):
 
     EPI_BIAS         cd(v)
     EPI_BIAS_RELU    cd(max(v, 0))
     EPI_RESID_MASK   cd(cd(resid + cd(v)) * mask[m])
     EPI_GELU         cd(gelu_tanh(cd(v)))
     EPI_GAMMA_RESID  cd(resid + cd(v * gamma[n]))
+    EPI_GELU_F32     cd(gelu_tanh(v))            (the single ConvNeXt block's w1)
 
 The tile and the K split are chosen here, in `plan`, and handed to the C entry
 points as ints. The split is a function of (N, K) alone: an output row is summed in
@@ -36,7 +37,7 @@ import torch.nn.functional as F
 
 from . import counter
 
-EPI_BIAS, EPI_BIAS_RELU, EPI_RESID_MASK, EPI_GELU, EPI_GAMMA_RESID = range(5)
+EPI_BIAS, EPI_BIAS_RELU, EPI_RESID_MASK, EPI_GELU, EPI_GAMMA_RESID, EPI_GELU_F32 = range(6)
 
 BK = 64  # K elements per pipeline stage; a K tile never spans two conv taps
 TILES = ((2, 128), (1, 128), (1, 64))  # (64-row consumer warpgroups, tile columns), largest first
@@ -53,8 +54,9 @@ MIN_TILES_PER_SPLIT = 16  # K tiles each part of a split still walks
 SPLIT_MAX_N = 512  # wider products fill the card through their N tiles
 
 _COUNT = counter("gemm_tc")
-# gemm_tc_forward(B, T, Cin, taps, N, epi, wgs, bn, split, A, Wt, C, bias, resid, mask, gamma, ws, stream)
-_SIGNATURE = [ctypes.c_int] * 9 + [ctypes.c_void_p] * 9
+# gemm_tc_forward(B, T, Cin, taps, N, epi, out_f32, wgs, bn, split, A, Wt, C, bias, resid, mask, gamma,
+#                 ws, stream)
+_SIGNATURE = [ctypes.c_int] * 10 + [ctypes.c_void_p] * 9
 
 
 def split_k(n: int, k: int) -> int:
@@ -123,10 +125,11 @@ def gemm_tc_plain(
     mask: Optional[torch.Tensor] = None,  # [B, T]
     gamma: Optional[torch.Tensor] = None,  # [N] f32
     taps: int = 1,
+    out_dtype: Optional[torch.dtype] = None,
 ) -> torch.Tensor:
-    """The same function with torch ops: f32 product and epilogue, rounded to a's
-    dtype where the kernel rounds."""
-    cd = a.dtype
+    """The same function with torch ops: f32 product and epilogue, rounded to the
+    output dtype (a's unless given) where the kernel rounds."""
+    cd = out_dtype or a.dtype
     rows = im2col3(a) if taps == 3 else a
     v = rows.float() @ w.float() + bias
     if epi == EPI_BIAS:
@@ -139,19 +142,24 @@ def gemm_tc_plain(
         return F.gelu(v.to(cd).float(), approximate="tanh").to(cd)
     if epi == EPI_GAMMA_RESID:
         return resid + (v * gamma).to(cd)
+    if epi == EPI_GELU_F32:
+        return F.gelu(v, approximate="tanh").to(cd)
     raise ValueError(f"unknown epilogue {epi}")
 
 
-def gemm_tc(a, w, epi, bias, resid=None, mask=None, gamma=None, taps: int = 1, wt=None, force_plan=None):
-    """`gemm_tc_plain` for CPU tensors; on a CUDA tensor the kernel (bf16 only) or
-    a ValueError listing what it does not take. `wt` is `w.t().contiguous()` where
-    the caller keeps it (the kernel reads W as [N, K]); else it is made here.
+def gemm_tc(a, w, epi, bias, resid=None, mask=None, gamma=None, taps: int = 1, wt=None, force_plan=None,
+            out_dtype=None):
+    """`gemm_tc_plain` for CPU tensors; on a CUDA tensor the kernel (bf16 operands,
+    bf16 or float32 output) or a ValueError listing what it does not take. `wt` is
+    `w.t().contiguous()` where the caller keeps it (the kernel reads W as [N, K]);
+    else it is made here.
     `force_plan` = (warpgroups, tile columns, split) replaces `plan`'s choice: for
     `gemm_tc_sweep`, which is how the planner's constants were chosen."""
     if not a.is_cuda:
-        return gemm_tc_plain(a, w, epi, bias, resid, mask, gamma, taps)
+        return gemm_tc_plain(a, w, epi, bias, resid, mask, gamma, taps, out_dtype)
     from . import _build
 
+    od = out_dtype or a.dtype
     b, t, cin = a.shape
     n = w.shape[-1]
     bad = problems(cin, n, taps)
@@ -161,14 +169,16 @@ def gemm_tc(a, w, epi, bias, resid=None, mask=None, gamma=None, taps: int = 1, w
         bad.append(f"W has {w.shape[0]} rows, A' has {taps * cin} columns")
     if wt is not None and (wt.shape != (n, taps * cin) or wt.dtype != w.dtype or not wt.is_contiguous()):
         bad.append("wt must be w.t().contiguous()")
-    if epi not in range(5):
+    if od not in (torch.bfloat16, torch.float32):
+        bad.append(f"output dtype {od} must be bfloat16 or float32")
+    if epi not in range(6):
         bad.append(f"unknown epilogue {epi}")
     if epi in (EPI_RESID_MASK, EPI_GAMMA_RESID) and resid is None:
         bad.append("this epilogue needs resid")
     if (epi == EPI_RESID_MASK and mask is None) or (epi == EPI_GAMMA_RESID and gamma is None):
         bad.append("this epilogue needs its mask or gamma")
-    if resid is not None and (resid.shape != (b, t, n) or resid.dtype != a.dtype):
-        bad.append(f"resid {tuple(resid.shape)} {resid.dtype} must be {(b, t, n)} {a.dtype}")
+    if resid is not None and (resid.shape != (b, t, n) or resid.dtype != od):
+        bad.append(f"resid {tuple(resid.shape)} {resid.dtype} must be {(b, t, n)} {od}")
     if mask is not None and mask.shape != (b, t):
         bad.append(f"mask shape {tuple(mask.shape)} != {(b, t)}")
     if bias.numel() != n or (gamma is not None and gamma.numel() != n):
@@ -184,7 +194,7 @@ def gemm_tc(a, w, epi, bias, resid=None, mask=None, gamma=None, taps: int = 1, w
     if (wgs, bn) not in TILES or split < 1 or (taps * cin // BK) % split:
         raise ValueError(f"gemm_tc kernel: no tile {(wgs, bn)} or K tiles not divisible by split {split}")
     wt = w.t().contiguous() if wt is None else wt
-    out = torch.empty((b, t, n), dtype=a.dtype, device=a.device)
+    out = torch.empty((b, t, n), dtype=od, device=a.device)
     ws = torch.empty((split * b * t * n if split > 1 else 1,), dtype=torch.float32, device=a.device)
     # Kept in names until the launch has been queued: a temporary's memory could be reused.
     a_c, bias_c = a.contiguous(), bias.float().contiguous()
@@ -193,7 +203,7 @@ def gemm_tc(a, w, epi, bias, resid=None, mask=None, gamma=None, taps: int = 1, w
     gamma_c = None if gamma is None else gamma.float().contiguous()
     p = lambda x: None if x is None else _build.ptr(x)  # noqa: E731
     rc = lib.gemm_tc_forward(
-        seqs, rows, cin, taps, n, epi, wgs, bn, split, p(a_c), p(wt), p(out), p(bias_c),
+        seqs, rows, cin, taps, n, epi, int(od == torch.float32), wgs, bn, split, p(a_c), p(wt), p(out), p(bias_c),
         p(resid_c), p(mask_c), p(gamma_c), p(ws), _build.stream_ptr(a.device),
     )
     _build.check(lib, rc, "gemm_tc kernel")

@@ -25,6 +25,7 @@ from gonova_tts_tpu_torch import ops
 from gonova_tts_tpu_torch.audio import mel as tmel
 from gonova_tts_tpu_torch.audio import stft as tstft
 from gonova_tts_tpu_torch.ops import convnext_block as cb_op
+from gonova_tts_tpu_torch.ops import gemm_tc as gemm_op
 from gonova_tts_tpu_torch.ops import mel_spectrogram as mel_op
 
 # Both `audio` packages export functions named like their modules (`stft`, `resample`).
@@ -152,6 +153,130 @@ def test_mel_spectrogram_wrapper_shapes_and_errors(rng):
         mel_op.mel_spectrogram(torch.zeros((1, 2, 2048)))
 
 
+# ------------------------------------------------------------------ the mel kernel's arithmetic
+#
+# The kernel runs only on a card; these hold what it computes, in PyTorch on the CPU:
+# its split-TF32 products, its basis layout, its reflect index and its banded mel.
+
+
+def test_split_tf32_rounds_to_nearest_ties_away_and_keeps_f32_accuracy(rng):
+    w = np.concatenate([rng.standard_normal(4096).astype(np.float32) * 10.0 ** rng.integers(-6, 3, 4096),
+                        np.float32([0.0, -0.0, 1.0, -2.5])])
+    # Exact ties: the low 13 bits 0x1000 round the magnitude up, whatever the sign.
+    ties = (np.float32([1.0, -3.0, 0.7]).view(np.uint32) & np.uint32(0xFFFFE000)) | np.uint32(0x1000)
+    w = np.concatenate([w, ties.view(np.float32)])
+    hi, lo = mel_op.split_tf32(w)
+    for v in (hi, lo):
+        assert not (v.view(np.uint32) & np.uint32(0x1FFF)).any()  # 10 mantissa bits
+    # Nearest: |w - hi| at most half a TF32 ulp of hi (2^-11 relative), with ties away.
+    assert np.all(np.abs(w.astype(np.float64) - hi) <= 2.0 ** -11 * np.abs(hi) * (1 + 2.0 ** -10))
+    tie_hi = hi[-3:]
+    assert np.all(np.abs(tie_hi) > np.abs(ties.view(np.float32)))
+    assert np.all(np.abs(w.astype(np.float64) - (hi.astype(np.float64) + lo)) <= 2.0 ** -21 * np.abs(w))
+
+
+def unpack_tf32_bases(n_fft, win_length=1024):
+    """(hi, lo), each [2 (cos, sin), n_fft, CLUSTER * BINS_PER_BLOCK], read back from the
+    kernel's stage images with its own index arithmetic: bin j of block q, k = 32 kt +
+    4 c + e at [q][kt][part][hi|lo][j][c ^ (j % 8)][e]."""
+    g_, nb = mel_op.CLUSTER, mel_op.BINS_PER_BLOCK
+    packed = mel_op.tf32_bases(n_fft, win_length, "cpu").numpy()
+    packed = packed.reshape(g_, n_fft // 32, 2, 2, nb, 8, 4)
+    swz = (np.arange(8)[None, :] ^ (np.arange(nb)[:, None] % 8)).reshape(1, 1, 1, 1, nb, 8, 1)
+    logical = np.take_along_axis(packed, swz, axis=5)  # [q, kt, part, hi|lo, j, c, e]
+    back = logical.transpose(3, 2, 1, 5, 6, 0, 4).reshape(2, 2, n_fft, g_ * nb)
+    return back[0], back[1]
+
+
+def mel_kernel_emulated(x, hop=256, n_fft=1024, n_mels=80):
+    """The kernel's function in PyTorch: frames gathered through the reflect index,
+    A split in two TF32 parts, re/im = A_lo B_hi + A_hi B_lo + A_hi B_hi in f32, mag,
+    then each cluster rank's banded partial mel added in rank order, log."""
+    b, t = x.shape
+    n_frames, n_bins = t // hop, n_fft // 2 + 1
+    src = mel_op.reflect_source(np.arange(n_frames)[:, None] * hop + np.arange(n_fft)[None], t, n_fft, hop)
+    frames = np.where(src >= 0, x[:, np.maximum(src, 0)], 0.0).astype(np.float32)
+    a_hi, a_lo = (torch.as_tensor(v) for v in mel_op.split_tf32(frames))
+    b_hi, b_lo = (torch.as_tensor(v) for v in unpack_tf32_bases(n_fft))
+    re, im = (a_lo @ b_hi[i] + a_hi @ b_lo[i] + a_hi @ b_hi[i] for i in (0, 1))
+    mag = torch.sqrt(torch.clamp(re * re + im * im, min=1e-9))[..., :n_bins]
+    fb = mel_op._filterbank_np(24000, n_fft, n_mels, 0.0, 12000.0)
+    mel = banded_mel(mag, fb, mel_op.band_ranges(fb), mel_op.BINS_PER_BLOCK)
+    return torch.log(torch.clamp(mel, min=1e-5))
+
+
+def banded_mel(mag, fb, band, nb):
+    """mag [..., n_bins] @ fb as the kernel sums it: per block of nb bins only the bins
+    inside each band's range, the blocks' partials added in order."""
+    n_bins, n_mels = fb.shape
+    inside = (np.arange(n_bins)[:, None] >= band[0]) & (np.arange(n_bins)[:, None] < band[1])
+    fb_banded = torch.as_tensor(np.where(inside, fb, 0.0).astype(np.float32))
+    total = torch.zeros(mag.shape[:-1] + (n_mels,))
+    for q0 in range(0, mel_op.CLUSTER * nb, nb):
+        total = total + mag[..., q0:q0 + nb] @ fb_banded[q0:q0 + nb]
+    return total
+
+
+def test_mel_ablation_cuts_still_match_the_kernel_source():
+    """`ops/mel_ablation.py` (a card tool) cuts parts out of the kernel by text: each
+    cut's marker must still be in the source, and each variant must differ from it."""
+    from gonova_tts_tpu_torch.ops import mel_ablation
+
+    sources = mel_ablation.variant_sources()
+    assert set(sources) == {"full", "one_product", "no_products", "no_k_loop"}
+    assert all(text != sources["full"] for name, text in sources.items() if name != "full")
+
+
+@pytest.mark.parametrize("frames,hop", [(129, 256), (40, 64), (2, 256)])
+def test_split_tf32_mel_holds_the_kernel_tolerance(rng, frames, hop):
+    """Three TF32 products instead of one f32 product: within the kernel's bound of the
+    plain version and of the Pallas kernel, on audio with a silent tail."""
+    t = max(frames * hop, 512)
+    x = 0.1 * rng.standard_normal((2, t)).astype(np.float32)
+    x[:, t // 2:] = 0.0
+    ours = mel_kernel_emulated(x, hop)
+    close(ours, mel_op.mel_spectrogram_plain(torch.as_tensor(x), hop_length=hop))
+    close(ours, mel_spectrogram_pallas(jnp.asarray(x), hop_length=hop, interpret=True))
+
+
+def test_tf32_bases_hold_the_split_folded_bases_in_fragment_order():
+    n_fft = 1024
+    hi, lo = unpack_tf32_bases(n_fft)
+    wcos, wsin = (v.numpy() for v in mel_op.folded_bases(n_fft, 1024, "cpu"))
+    for part, w in enumerate((wcos, wsin)):
+        padded = np.zeros_like(hi[part])
+        padded[:, : w.shape[1]] = w
+        want_hi, want_lo = mel_op.split_tf32(padded)
+        np.testing.assert_array_equal(hi[part], want_hi)
+        np.testing.assert_array_equal(lo[part], want_lo)
+    assert hi.shape[-1] == mel_op.CLUSTER * mel_op.BINS_PER_BLOCK == 576
+
+
+@pytest.mark.parametrize("t", [1, 100, 384, 385, 386, 600, 1000, 4096])
+@pytest.mark.parametrize("hop", [256, 64])
+def test_reflect_source_gathers_the_reflect_pad(rng, t, hop):
+    """The kernel's source index reproduces `reflect_pad`, short clips (T <= pad,
+    zero-extended to pad + 1 first) included."""
+    x = rng.standard_normal(t).astype(np.float32)
+    padded = tstft.reflect_pad(torch.as_tensor(x), 1024, hop).numpy()
+    src = mel_op.reflect_source(np.arange(padded.shape[-1]), t, 1024, hop)
+    np.testing.assert_array_equal(np.where(src >= 0, x[np.maximum(src, 0)], 0.0), padded)
+
+
+@pytest.mark.parametrize("kw", [{}, {"n_mels": 40, "fmax": None}, {"n_fft": 512, "n_mels": 64}])
+def test_band_ranges_cover_every_nonzero_and_the_banded_mel_is_the_dense_one(rng, kw):
+    n_fft, n_mels, fmax = kw.get("n_fft", 1024), kw.get("n_mels", 80), kw.get("fmax", 12000.0)
+    fb = mel_op._filterbank_np(24000, n_fft, n_mels, 0.0, fmax)
+    band = mel_op.band_ranges(fb)
+    rows = np.arange(fb.shape[0])[:, None]
+    assert not (fb[(rows < band[0]) | (rows >= band[1])] != 0).any()
+    assert np.all(band[0] <= band[1]) and np.all(band[1] <= fb.shape[0])
+    mag = torch.as_tensor(np.abs(rng.standard_normal((3, 7, fb.shape[0]))).astype(np.float32))
+    dense = mag @ torch.as_tensor(fb)
+    nb = mel_op.BINS_PER_BLOCK
+    assert float((banded_mel(mag, fb, band, nb) - dense).abs().max()) <= 1e-6 * float(dense.abs().max())
+
+
 # ------------------------------------------------------------------ resample
 
 
@@ -216,6 +341,42 @@ def test_convnext_block_plain_matches_pallas_bf16(rng, block, x_bf16):
     diff = np.abs(ours.float().numpy() - np.asarray(theirs.astype(jnp.float32)))
     assert float(diff.max()) < 0.1
     assert float(diff.mean()) < 5e-3
+
+
+@pytest.mark.parametrize("x_bf16", [False, True])
+def test_tensor_core_epilogues_chained_are_the_block_mlp_half(rng, block, x_bf16):
+    """The kernel's bf16-MLP route: dwconv + LN to bf16, then the shared GEMM with
+    EPI_GELU_F32 (h in bf16) and EPI_GAMMA_RESID in x's dtype, f32 residual for an f32
+    x. Equal to the plain block, and within the bf16 bound of the Pallas kernel."""
+    dw, dw_b, ln_g, ln_b, w1, b1, w2, b2, gamma = block_args(block)
+    x = torch.as_tensor(rng.standard_normal((2, 100, 128)).astype(np.float32))
+    x = x.bfloat16() if x_bf16 else x
+    normed = cb_op.dwconv_ln_plain(x, dw, dw_b, ln_g, ln_b, 1e-5, torch.bfloat16)
+    h = gemm_op.gemm_tc(normed, w1.bfloat16(), gemm_op.EPI_GELU_F32, b1)
+    ours = gemm_op.gemm_tc(h, w2.bfloat16(), gemm_op.EPI_GAMMA_RESID, b2, resid=x, gamma=gamma, out_dtype=x.dtype)
+    plain = cb_op.convnext_block_plain(x, *block_args(block), bf16=True)
+    assert ours.dtype == x.dtype
+    assert float((ours.float() - plain.float()).abs().max()) <= (0.0 if x_bf16 else 1e-6)
+    theirs = convnext_block_pallas(jnp.asarray(x.float().numpy()).astype(jnp.bfloat16 if x_bf16 else jnp.float32),
+                                   *block, interpret=True, bf16=True)
+    assert float(np.abs(ours.float().numpy() - np.asarray(theirs.astype(jnp.float32))).max()) < 0.1
+
+
+def test_tensor_core_weight_copy_follows_the_tensor_not_its_address():
+    """The bf16 [N, K] copies are cached per weight tensor: a write (a new `_version`)
+    makes a new copy, and a new tensor never gets an old one's copy."""
+    import gc
+
+    w = torch.randn(64, 192)
+    first = cb_op.tc_weight(w)
+    assert cb_op.tc_weight(w) is first and torch.equal(first, w.bfloat16().t())
+    w.mul_(2.0)
+    assert torch.equal(cb_op.tc_weight(w), w.bfloat16().t())
+    for _ in range(3):  # freed and reallocated tensors of the same shape
+        del w
+        gc.collect()
+        w = torch.randn(64, 192)
+        assert torch.equal(cb_op.tc_weight(w), w.bfloat16().t())
 
 
 def test_convnext_block_plain_equals_one_vocos_block(rng, block):

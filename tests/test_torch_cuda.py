@@ -309,3 +309,88 @@ def test_bf16_stacks_raise_on_widths_the_tensor_core_gemm_does_not_take(setup):
     packed = {k: v.to(dev) for k, v in vs_op.pack_params(model.vocoder.blocks, torch.bfloat16).items()}
     with pytest.raises(ValueError, match="multiple of 64"):
         vs_op.vocos_stack(torch.zeros((1, 32, 96), device=dev), packed, bf16=True)
+
+
+# ------------------------------------------------------------------ the fourth slice's redesigns
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("epi,out_dtype", [
+    (gemm_op.EPI_GELU_F32, torch.bfloat16), (gemm_op.EPI_GAMMA_RESID, torch.float32),
+    (gemm_op.EPI_BIAS, torch.float32), (gemm_op.EPI_GELU_F32, torch.float32),
+])
+@pytest.mark.parametrize("cin,n", [(512, 1536), (1536, 512), (128, 256)])
+def test_gemm_tc_gelu_f32_and_f32_output(setup, epi, out_dtype, cin, n):
+    """The single block's epilogues alone: against the plain version, and a row's bits
+    the same at M = 1280 and at its first 122 rows."""
+    dev, _, rng = setup
+    x = gemm_inputs(dev, rng, 4, 320, cin, n, 1)
+    x["resid"] = x["resid"].to(out_dtype)
+    run = lambda fn, d: fn(d["a"], d["w"], epi, d["bias"], d["resid"], d["mask"], d["gamma"], 1,  # noqa: E731
+                           out_dtype=out_dtype)
+    before = ops.launch_counts()["gemm_tc"]
+    ours, plain = run(gemm_op.gemm_tc, x), run(gemm_op.gemm_tc_plain, x)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["gemm_tc"] == before + 1
+    assert ours.dtype == out_dtype and ours.shape == plain.shape == (4, 320, n)
+    assert_gemm_close(ours, plain, x, epi)
+    rows = {k: (v[:1, :122] if k in ("a", "resid", "mask") else v) for k, v in x.items()}
+    assert torch.equal(run(gemm_op.gemm_tc, rows), ours[:1, :122])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("x_bf16", [False, True])
+@pytest.mark.parametrize("b,t", [(4, 320), (1, 300)])
+def test_convnext_block_bf16_mlp_at_checkpoint_widths_takes_the_tensor_core_gemm(setup, x_bf16, b, t):
+    dev, _, rng = setup
+    c, f = 512, 1536
+    t_ = lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev)  # noqa: E731
+    args = (t_(rng.standard_normal((7, c)) * 0.3), t_(rng.standard_normal(c) * 0.1), t_(1 + 0.1 * rng.standard_normal(c)),
+            t_(0.1 * rng.standard_normal(c)), t_(rng.standard_normal((c, f)) / np.sqrt(c)), t_(0.1 * rng.standard_normal(f)),
+            t_(rng.standard_normal((f, c)) / np.sqrt(f)), t_(0.1 * rng.standard_normal(c)), t_(np.full(c, 0.5)))
+    x = t_(rng.standard_normal((b, t, c)))
+    x = x.bfloat16() if x_bf16 else x
+    counts = ops.launch_counts()
+    ours = cb_op.convnext_block(x, *args, bf16=True)
+    again = cb_op.convnext_block(x, *args, bf16=True)
+    plain = cb_op.convnext_block_plain(x, *args, bf16=True)
+    torch.cuda.synchronize()
+    after = ops.launch_counts()
+    assert after["convnext_block"] == counts["convnext_block"] + 2 and after["gemm_tc"] == counts["gemm_tc"] + 4
+    assert ours.dtype == x.dtype and torch.equal(ours, again)
+    assert float((ours.float() - plain.float()).abs().max()) < 0.1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c,f", [(96, 256), (128, 160)])
+def test_convnext_block_bf16_mlp_raises_on_widths_not_a_multiple_of_64(setup, c, f):
+    dev, _, rng = setup
+    t_ = lambda *s: torch.as_tensor(rng.standard_normal(s).astype(np.float32), device=dev)  # noqa: E731
+    args = (t_(7, c), t_(c), t_(c), t_(c), t_(c, f), t_(f), t_(f, c), t_(c), t_(c))
+    x = t_(1, 40, c)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        cb_op.convnext_block(x, *args, bf16=True)
+    out = cb_op.convnext_block(x, *args, bf16=False)  # the f32 MLP stays on the CUDA cores
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, cb_op.convnext_block_plain(x, *args, bf16=False), atol=2e-4, rtol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,t,hop", [(1, 239872, 256), (2, 8192, 64)])
+def test_mel_spectrogram_is_one_launch_with_repeatable_bits(setup, b, t, hop):
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    dev, _, rng = setup
+    x = torch.as_tensor(0.1 * rng.standard_normal((b, t)).astype(np.float32), device=dev)
+    x[:, t // 2:] = 0.0
+    first = mel_op.mel_spectrogram(x, hop_length=hop)  # builds and caches the bases
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        second = mel_op.mel_spectrogram(x, hop_length=hop)
+        torch.cuda.synchronize()
+    device_events = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    assert len(device_events) == 1 and "mel_kernel" in device_events[0], device_events
+    assert torch.equal(first, second)
+    plain = mel_op.mel_spectrogram_plain(x, hop_length=hop)
+    assert bool(((second - plain).abs() <= 2e-4 + 1e-4 * plain.abs()).all())

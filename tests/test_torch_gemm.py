@@ -30,7 +30,7 @@ def one_torch_thread():
 
 
 TOL = 1e-5
-EPILOGUES = [g.EPI_BIAS, g.EPI_BIAS_RELU, g.EPI_RESID_MASK, g.EPI_GELU, g.EPI_GAMMA_RESID]
+EPILOGUES = [g.EPI_BIAS, g.EPI_BIAS_RELU, g.EPI_RESID_MASK, g.EPI_GELU, g.EPI_GAMMA_RESID, g.EPI_GELU_F32]
 LENGTHS = [1, 50, 64, 122]
 
 
@@ -59,7 +59,7 @@ def jax_epilogue(v, x, epi):
         return jax.nn.relu(v)
     if epi == g.EPI_RESID_MASK:
         return (jnp.asarray(x["resid"]) + v) * jnp.asarray(x["mask"])[..., None]
-    if epi == g.EPI_GELU:
+    if epi in (g.EPI_GELU, g.EPI_GELU_F32):
         return jax.nn.gelu(v)
     return jnp.asarray(x["resid"]) + v * jnp.asarray(x["gamma"])
 
@@ -94,6 +94,21 @@ def test_rows_gelu_then_gamma_resid_is_the_vocos_mlp_half(rng, t):
     ref = jnp.asarray(x2["resid"]) + h * jnp.asarray(x2["gamma"])
     x2["a"] = ours(x1, g.EPI_GELU, 1)
     assert float(np.abs(ours(x2, g.EPI_GAMMA_RESID, 1) - np.asarray(ref)).max()) <= TOL
+
+
+def test_gelu_f32_rounds_only_the_result_and_f32_output_keeps_an_f32_residual(rng):
+    """bf16 operands: EPI_GELU gives bf16(gelu(bf16(v))), EPI_GELU_F32 bf16(gelu(v));
+    EPI_GAMMA_RESID with a float32 output reads an f32 resid and adds v * gamma unrounded."""
+    x = {k: torch.as_tensor(v) for k, v in inputs(rng, 50, 64, 128, taps=1).items()}
+    a, w = x["a"].bfloat16(), x["w"].bfloat16()
+    v = a.float() @ w.float() + x["bias"]
+    gelu = lambda u: torch.nn.functional.gelu(u, approximate="tanh")  # noqa: E731
+    assert torch.equal(g.gemm_tc(a, w, g.EPI_GELU_F32, x["bias"]), gelu(v).bfloat16())
+    assert torch.equal(g.gemm_tc(a, w, g.EPI_GELU, x["bias"]), gelu(v.bfloat16().float()).bfloat16())
+    out = g.gemm_tc(a, w, g.EPI_GAMMA_RESID, x["bias"], resid=x["resid"], gamma=x["gamma"], out_dtype=torch.float32)
+    assert out.dtype == torch.float32 and torch.equal(out, x["resid"] + v * x["gamma"])
+    out = g.gemm_tc(a, w, g.EPI_BIAS, x["bias"], out_dtype=torch.float32)
+    assert out.dtype == torch.float32 and torch.equal(out, v)
 
 
 def test_cpu_tensors_take_the_plain_version_and_count_no_launch(rng):
