@@ -22,7 +22,9 @@ Phases; any failure exits non-zero before the final line:
      mel's frames @ [wcos | wsin] in full f32): a yardstick, not `library_ms`.
      The single ConvNeXt block is also chained over the checkpoint's eight blocks,
      with its launch count read: in f32 against the stack kernel, in bf16 (x and MLP,
-     the tensor-core route) against eight calls of its plain version.
+     the tensor-core route) against eight calls of its plain version, where
+     torch.profiler also counts the device kernels the chain ran (two of the shared
+     GEMM's `gemm_tc_kernel` a block).
   4. engine: the demo checkpoint (assets/checkpoints/demo_ema_f16.npz, full width,
      30.1 M parameters) in bf16 with both kernel switches on — batch one-graph and
      two-stage, streaming, a 128-token sentence whose decoder takes the plain
@@ -419,29 +421,47 @@ def convnext_chain(model, torch, dev, rng):
             "tolerance": CHAIN_VS_STACK_BOUND, "launches": launches, "ok": ok}
 
 
+def device_kernels(torch, fn):
+    """(fn(), the names of the device kernels it ran) from one torch.profiler trace."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as tprofile
+
+    with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    return out, [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+
+
 def convnext_chain_bf16(model, torch, dev, rng):
-    """The same chain with x and the MLP in bf16, the tensor-core route: launch counts
-    from zero (the block's and the shared GEMM's), against eight plain blocks."""
+    """The same chain with x and the MLP in bf16, the tensor-core route: the block's
+    launch count from zero, and the device kernels it ran from the profiler (each block
+    one dwconv_ln and two of the shared GEMM's gemm_tc_kernel), against eight plain
+    blocks."""
     from gonova_tts_tpu_torch import ops
     from gonova_tts_tpu_torch.ops import convnext_block as cb
 
+    def chain(x):
+        for blk in model.vocoder.blocks:
+            x = cb.convnext_block(x, *block_weights(blk), bf16=True)
+        return x
+
     x = torch.as_tensor(rng.standard_normal((4, 320, 512)).astype("float32"), device=dev).bfloat16()
     ops.reset_launch_counts()
-    y = x
-    for blk in model.vocoder.blocks:
-        y = cb.convnext_block(y, *block_weights(blk), bf16=True)
-    torch.cuda.synchronize()
-    counts = ops.launch_counts()
+    y, names = device_kernels(torch, lambda: chain(x))
+    launches = ops.launch_counts()["convnext_block"]
+    tc_kernels = sum("gemm_tc_kernel" in k for k in names)
+    dw_kernels = sum("dwconv_ln_kernel" in k for k in names)
     ref = x
     for blk in model.vocoder.blocks:
         ref = cb.convnext_block_plain(ref, *block_weights(blk), bf16=True)
     err = float((y.float() - ref.float()).abs().max())
     n = len(model.vocoder.blocks)
-    ok = (counts["convnext_block"] == n and counts["gemm_tc"] == 2 * n and y.dtype == torch.bfloat16
+    ok = (launches == n and tc_kernels == 2 * n and dw_kernels == n and y.dtype == torch.bfloat16
           and bool(torch.isfinite(y.float()).all()) and err <= KERNEL_BF16_BOUND)
     return {"case": "8 blocks chained vs 8 plain blocks B=4 T=320", "dtype": "x bfloat16, mlp bfloat16",
-            "max_abs_err": err, "tolerance": KERNEL_BF16_BOUND, "launches": counts["convnext_block"],
-            "gemm_tc_launches": counts["gemm_tc"], "ok": ok}
+            "max_abs_err": err, "tolerance": KERNEL_BF16_BOUND, "launches": launches,
+            "gemm_tc_kernels": tc_kernels, "dwconv_ln_kernels": dw_kernels, "ok": ok}
 
 
 # ------------------------------------------------------------------ phase 4
@@ -791,7 +811,7 @@ def main() -> None:
         entry("convnext_block", "gonova_tts_tpu/ops/convnext_kernel.py:146", cb_cases + [chain, chain_bf16],
               "B=4 T=320", "x bfloat16, mlp bfloat16", chain["launches"] + chain_bf16["launches"],
               launches_f32_chain=chain["launches"], launches_bf16_chain=chain_bf16["launches"],
-              gemm_tc_launches_bf16_chain=chain_bf16["gemm_tc_launches"]),
+              gemm_tc_kernels_bf16_chain=chain_bf16["gemm_tc_kernels"]),
     ]
     bad = [f"{c['case']} {c['dtype']}" for c in gm_cases + ts_cases + vs_cases + mel_cs + cb_cases + [chain, chain_bf16]
            if not c["ok"]]

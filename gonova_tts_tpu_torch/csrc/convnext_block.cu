@@ -59,8 +59,9 @@ int block_forward_tc(int B, int Tn, int C, int F, float eps, const TX* x, TX* ou
   dwconv_ln_kernel<TX, tc::bf16><<<M, DW_THREADS, 0, s>>>(x, normed, dw, dwb, ln_g, ln_b, Tn, C, eps);
   PORT_RETURN_IF_ERROR();
   const tc::Plan p_1{plans[0], plans[1], plans[2]}, p_2{plans[3], plans[4], plans[5]};
-  const int rc = tc::gemm_tc(normed, w1_t, h, 1, M, C, 1, F, EPI_GELU_F32, b1, nullptr, nullptr, nullptr, ws,
-                             p_1, s);
+  // EPI_GELU_F32: EPI_GELU in the kernels compiled with F32_GELU.
+  const int rc = tc::gemm_tc<tc::bf16, true>(normed, w1_t, h, 1, M, C, 1, F, EPI_GELU, b1, nullptr, nullptr,
+                                             nullptr, ws, p_1, s);
   if (rc) return rc;
   return tc::gemm_tc(h, w2_t, out, 1, M, F, 1, C, EPI_GAMMA_RESID, b2, x, nullptr, gamma, ws, p_2, s);
 }

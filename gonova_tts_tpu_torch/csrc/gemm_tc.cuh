@@ -196,10 +196,11 @@ template <> struct Wgmma<128> {
 // ------------------------------------------------------------------ epilogue
 
 // v = acc + bias[n] in f32; r = resid[m, n]; the rounding points of common.cuh, to the
-// output type TO (bf16, or float, where the rounding is the identity). EPI_GELU_F32 is
-// EPI_GELU with F32_GELU set, a compile-time choice: a sixth case in this runtime
-// switch changed how the unrolled epilogue compiled, and every unsplit product of the
-// stacks took ~4 us more on the H100 (chip_smoke.py's `gemm case` lines).
+// output type TO (bf16, or float, where the rounding is the identity). common.cuh's
+// EPI_GELU_F32 is EPI_GELU in a kernel compiled with F32_GELU, chosen by the caller of
+// gemm_tc: a sixth case in this runtime switch changed how the unrolled epilogue
+// compiled, and every unsplit product of the stacks took ~4 us more on the H100
+// (chip_smoke.py's `gemm case` lines).
 template <typename TO, bool F32_GELU>
 __device__ __forceinline__ float apply_epilogue(int epi, float v, float r, float mask_m, float gamma_n) {
   switch (epi) {
@@ -494,14 +495,17 @@ int run(const CUtensorMap& map_a, const CUtensorMap& map_w, const Params<TO>& p,
 // C = epilogue(A' @ Wt^T). A [B, T_len, Cin] bf16 (taps == 1: A' = A; taps == 3: the
 // k=3 SAME conv's implicit im2col, K = 3 * Cin), Wt [N, taps * Cin] bf16, C and
 // resid [B * T_len, N] in TO (bf16 or float), ws f32 [split, B * T_len, N] when
-// plan.split > 1. Needs Cin % 64 == 0, N % 8 == 0, (taps * Cin / 64) % split == 0: the
-// Python wrapper checks and raises. Returns a cudaError_t code.
-template <typename TO>
+// plan.split > 1. epi is EPI_BIAS .. EPI_GAMMA_RESID; with F32_GELU, EPI_GELU takes the
+// GELU of the f32 sum (EPI_GELU_F32). Needs Cin % 64 == 0, N % 8 == 0,
+// (taps * Cin / 64) % split == 0: the Python wrapper checks and raises. Returns a
+// cudaError_t code.
+template <typename TO, bool F32_GELU = false>
 inline int gemm_tc(const bf16* A, const bf16* Wt, TO* C, int B, int T_len, int Cin, int taps, int N, int epi,
                    const float* bias, const typename same_type<TO>::type* resid, const float* mask,
                    const float* gamma, float* ws, Plan plan, cudaStream_t s) {
   const int K = taps * Cin;
-  if (Cin % TC_BK || N % 8 || plan.split < 1 || (K / TC_BK) % plan.split || (taps != 1 && taps != 3))
+  if (Cin % TC_BK || N % 8 || plan.split < 1 || (K / TC_BK) % plan.split || (taps != 1 && taps != 3) ||
+      epi < EPI_BIAS || epi > EPI_GAMMA_RESID)
     return (int)cudaErrorInvalidValue;
   Params<TO> p;
   p.C = C; p.resid = resid; p.bias = bias; p.mask = mask; p.gamma = gamma; p.ws = ws;
@@ -514,12 +518,7 @@ inline int gemm_tc(const bf16* A, const bf16* Wt, TO* C, int B, int T_len, int C
     return (int)cudaErrorInvalidPitchValue;
   if (!encode_map(&map_w, Wt, 2, (uint64_t)K, (uint64_t)N, 1, (uint32_t)plan.bn))
     return (int)cudaErrorInvalidTexture;
-  // EPI_GELU_F32 runs as EPI_GELU in the kernels compiled with F32_GELU.
-  if (epi == EPI_GELU_F32) {
-    p.epi = EPI_GELU;
-    return run<TO, true>(map_a, map_w, p, plan, B, s);
-  }
-  return run<TO, false>(map_a, map_w, p, plan, B, s);
+  return run<TO, F32_GELU>(map_a, map_w, p, plan, B, s);
 }
 
 }  // namespace tc

@@ -35,7 +35,7 @@
 //     waited for (wgmma.wait_group 1), its slot refilled, and the next tile's A split
 //     into a second register set. Every output is summed over k in the same order.
 //     (mma.sync m16n8k8 came first and was slower: each warp re-read its B fragments
-//     from shared memory. ops/mel_ablation.py times the kernel's parts.)
+//     from shared memory.)
 //   * Epilogue in shared memory: mag for the block's bins, then the block's partial
 //     mel over the bands whose nonzero bins (ranges from the host) meet them, in f32
 //     FMA from the block's rows of the filterbank, staged with the audio; the 8

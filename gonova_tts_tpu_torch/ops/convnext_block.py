@@ -35,8 +35,6 @@ _COUNT = counter("convnext_block")
 _SIGNATURE = [ctypes.c_int] * 6 + [ctypes.c_float] + [ctypes.c_void_p] * 16
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _TC_WEIGHTS: Dict[int, tuple] = {}  # id(w) -> (weakref to w, w._version, bf16 [N, K] copy)
-_TC_WEIGHTS_MAX = 64
-_PLANS: Dict[tuple, tuple] = {}
 
 
 def dwconv_ln_plain(x, dw, dw_b, ln_g, ln_b, eps: float, md: torch.dtype) -> torch.Tensor:
@@ -73,30 +71,25 @@ def tc_weight(w: torch.Tensor) -> torch.Tensor:
     """The bf16 [N, K] copy of a [K, N] MLP weight that the tensor-core GEMM reads,
     made once per tensor object and kept until it is written to (its `_version`).
     Keyed on the object, not on its address: a freed weight's memory is soon another
-    weight's, at version 0 and of the same shape."""
-    hit = _TC_WEIGHTS.get(id(w))
+    weight's, at version 0 and of the same shape. The copy goes when the tensor dies."""
+    key = id(w)
+    hit = _TC_WEIGHTS.get(key)
     if hit is None or hit[0]() is not w or hit[1] != w._version:
-        if len(_TC_WEIGHTS) >= _TC_WEIGHTS_MAX:
-            _TC_WEIGHTS.clear()
-        hit = (weakref.ref(w), w._version, w.detach().to(torch.bfloat16).t().contiguous())
-        _TC_WEIGHTS[id(w)] = hit
+        copy = w.detach().to(torch.bfloat16).t().contiguous()
+        hit = (weakref.ref(w, lambda ref: _evict(key, ref)), w._version, copy)
+        _TC_WEIGHTS[key] = hit
     return hit[2]
+
+
+def _evict(key: int, ref: weakref.ref) -> None:
+    """A cached weight died: drop its copy, unless the key is already another's."""
+    if _TC_WEIGHTS.get(key, (None,))[0] is ref:
+        del _TC_WEIGHTS[key]
 
 
 def _f32(v: torch.Tensor) -> torch.Tensor:
     """v as a contiguous float32 tensor, v itself when it is one already."""
     return v if v.dtype == torch.float32 and v.is_contiguous() else v.detach().float().contiguous()
-
-
-def _plans(rows: int, c: int, f: int):
-    """(ctypes int[6], workspace elements or 0): the plans of w1 and w2 for `rows`
-    rows, as the C entry point takes them, cached per shape."""
-    key = (rows, c, f)
-    if key not in _PLANS:
-        tiles = [gemm_tc.plan(1, rows, f, c), gemm_tc.plan(1, rows, c, f)]
-        ws = max([pl[2] * rows * n for pl, n in zip(tiles, (f, c)) if pl[2] > 1], default=0)
-        _PLANS[key] = ((ctypes.c_int * 6)(*(v for pl in tiles for v in pl)), ws)
-    return _PLANS[key]
 
 
 def _launch(x, dw, dw_b, ln_g, ln_b, w1, b1, w2, b2, gamma, eps, bf16):
@@ -128,9 +121,8 @@ def _launch(x, dw, dw_b, ln_g, ln_b, w1, b1, w2, b2, gamma, eps, bf16):
     plans, ws = None, None
     if bf16:  # the [N, K] copies, both products' tile and split, a split's workspace
         w1, w2 = tc_weight(w1), tc_weight(w2)
-        plans, ws_elems = _plans(b * t, c, f)
-        if ws_elems:
-            ws = torch.empty((ws_elems,), dtype=torch.float32, device=x.device)
+        m = b * t
+        plans, ws = gemm_tc.plan_args([gemm_tc.plan(1, m, f, c), gemm_tc.plan(1, m, c, f)], m, (f, c), x.device)
     else:
         w1, w2 = _f32(w1), _f32(w2)
     out = torch.empty_like(x)
@@ -144,6 +136,4 @@ def _launch(x, dw, dw_b, ln_g, ln_b, w1, b1, w2, b2, gamma, eps, bf16):
     )
     _build.check(lib, rc, "convnext_block kernel")
     _COUNT.count += 1
-    if bf16:  # the library launched the shared GEMM's kernel twice
-        counter("gemm_tc").count += 2
     return out

@@ -134,16 +134,14 @@ def reflect_source(positions: np.ndarray, t: int, n_fft: int, hop_length: int) -
     return np.where(i < t, i, -1)
 
 
-def _prepare(x: torch.Tensor, n_fft: int, hop_length: int):
-    """→ (reflect-padded [B, Tp] f32 contiguous, n_frames, squeeze)."""
+def _as_batch(x: torch.Tensor, n_fft: int, hop_length: int):
+    """The framing rule and shapes both versions take: → ([B, T] f32, squeeze)."""
     if n_fft % hop_length != 0:
         raise ValueError("fused mel kernel requires n_fft % hop_length == 0")
     if x.ndim not in (1, 2):
         raise ValueError(f"mel_spectrogram takes [T] or [B, T] audio, got {tuple(x.shape)}")
     squeeze = x.ndim == 1
-    x = x.float()[None] if squeeze else x.float()
-    n_frames = x.shape[1] // hop_length
-    return reflect_pad(x, n_fft, hop_length).contiguous(), n_frames, squeeze
+    return (x[None] if squeeze else x).float(), squeeze
 
 
 def mel_spectrogram_plain(
@@ -157,9 +155,10 @@ def mel_spectrogram_plain(
     fmax: Optional[float] = 12000.0,
     eps: float = 1e-5,
 ) -> torch.Tensor:
-    xp, n_frames, squeeze = _prepare(x, n_fft, hop_length)
+    x, squeeze = _as_batch(x, n_fft, hop_length)
+    n_frames = x.shape[1] // hop_length
     wcos, wsin = folded_bases(n_fft, win_length, x.device)
-    frames = xp.unfold(-1, n_fft, hop_length)[:, :n_frames]
+    frames = reflect_pad(x, n_fft, hop_length).contiguous().unfold(-1, n_fft, hop_length)[:, :n_frames]
     real, imag = frames @ wcos, frames @ wsin
     mag = torch.sqrt(torch.clamp(real * real + imag * imag, min=1e-9))
     out = torch.log(torch.clamp(mag @ _filterbank(sr, n_fft, n_mels, fmin, fmax, x.device), min=eps))
@@ -178,8 +177,9 @@ def mel_spectrogram(
     eps: float = 1e-5,
 ) -> torch.Tensor:
     """[T] or [B, T] audio → [T // hop, n_mels] or [B, T // hop, n_mels] f32 log-mel,
-    any n_fft that hop divides. CPU tensors take the plain version; CUDA tensors
-    launch the kernel."""
+    n_fft a multiple of hop. CPU tensors take the plain version; CUDA tensors launch
+    the kernel, which also needs hop a multiple of 8 and n_fft a multiple of 64 with
+    n_fft // 2 + 1 <= 576 bins (so n_fft <= 1088), and raises otherwise."""
     if not x.is_cuda:
         return mel_spectrogram_plain(x, sr, n_fft, hop_length, win_length, n_mels, fmin, fmax, eps)
     return _launch(x, sr, n_fft, hop_length, win_length, n_mels, fmin, fmax, eps)
@@ -188,16 +188,12 @@ def mel_spectrogram(
 def _launch(x, sr, n_fft, hop_length, win_length, n_mels, fmin, fmax, eps):
     from . import _build
 
-    if n_fft % hop_length != 0:
-        raise ValueError("fused mel kernel requires n_fft % hop_length == 0")
-    if x.ndim not in (1, 2):
-        raise ValueError(f"mel_spectrogram takes [T] or [B, T] audio, got {tuple(x.shape)}")
+    x, squeeze = _as_batch(x, n_fft, hop_length)
     n_bins = n_fft // 2 + 1
     if hop_length % 8 or n_fft % (2 * K_TILE) or n_bins > CLUSTER * BINS_PER_BLOCK:
         raise ValueError(f"mel_spectrogram kernel: hop={hop_length} must be a multiple of 8, n_fft={n_fft} "
                          f"a multiple of {2 * K_TILE} and at most {2 * CLUSTER * BINS_PER_BLOCK - 2}")
-    squeeze = x.ndim == 1
-    x = (x[None] if squeeze else x).float().contiguous()
+    x = x.contiguous()
     b, t = x.shape
     n_frames = t // hop_length
     out = torch.empty((b, n_frames, n_mels), dtype=torch.float32, device=x.device)

@@ -153,6 +153,14 @@ def test_mel_spectrogram_wrapper_shapes_and_errors(rng):
         mel_op.mel_spectrogram(torch.zeros((1, 2, 2048)))
 
 
+def test_mel_spectrogram_casts_its_input_to_f32(rng):
+    """Audio of another float dtype is cast to f32 first: the same bits as f32 audio."""
+    x = 0.1 * rng.standard_normal((2, 4096))
+    ours = mel_op.mel_spectrogram(torch.as_tensor(x))  # float64
+    assert ours.dtype == torch.float32
+    assert torch.equal(ours, mel_op.mel_spectrogram(torch.as_tensor(x.astype(np.float32))))
+
+
 # ------------------------------------------------------------------ the mel kernel's arithmetic
 #
 # The kernel runs only on a card; these hold what it computes, in PyTorch on the CPU:
@@ -215,16 +223,6 @@ def banded_mel(mag, fb, band, nb):
     for q0 in range(0, mel_op.CLUSTER * nb, nb):
         total = total + mag[..., q0:q0 + nb] @ fb_banded[q0:q0 + nb]
     return total
-
-
-def test_mel_ablation_cuts_still_match_the_kernel_source():
-    """`ops/mel_ablation.py` (a card tool) cuts parts out of the kernel by text: each
-    cut's marker must still be in the source, and each variant must differ from it."""
-    from gonova_tts_tpu_torch.ops import mel_ablation
-
-    sources = mel_ablation.variant_sources()
-    assert set(sources) == {"full", "one_product", "no_products", "no_k_loop"}
-    assert all(text != sources["full"] for name, text in sources.items() if name != "full")
 
 
 @pytest.mark.parametrize("frames,hop", [(129, 256), (40, 64), (2, 256)])
@@ -377,6 +375,23 @@ def test_tensor_core_weight_copy_follows_the_tensor_not_its_address():
         gc.collect()
         w = torch.randn(64, 192)
         assert torch.equal(cb_op.tc_weight(w), w.bfloat16().t())
+
+
+def test_tensor_core_weight_copy_dies_with_its_tensor():
+    """A weight's cached copy is dropped when the weight is, not kept until the cache
+    is full; a rewritten weight's entry is replaced, not added to."""
+    import gc
+
+    before = len(cb_op._TC_WEIGHTS)
+    ws = [torch.randn(64, 128) for _ in range(4)]
+    for w in ws:
+        cb_op.tc_weight(w)
+    ws[0].add_(1.0)
+    cb_op.tc_weight(ws[0])
+    assert len(cb_op._TC_WEIGHTS) == before + 4
+    del w, ws
+    gc.collect()
+    assert len(cb_op._TC_WEIGHTS) == before
 
 
 def test_convnext_block_plain_equals_one_vocos_block(rng, block):

@@ -15,6 +15,8 @@ kernel test's bound: f32 summation order under a log); one ConvNeXt block in f32
 import numpy as np
 import pytest
 import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
 
 from gonova_tts_tpu_torch import ops
 from gonova_tts_tpu_torch.config import ModelConfig
@@ -350,13 +352,17 @@ def test_convnext_block_bf16_mlp_at_checkpoint_widths_takes_the_tensor_core_gemm
             t_(rng.standard_normal((f, c)) / np.sqrt(f)), t_(0.1 * rng.standard_normal(c)), t_(np.full(c, 0.5)))
     x = t_(rng.standard_normal((b, t, c)))
     x = x.bfloat16() if x_bf16 else x
-    counts = ops.launch_counts()
-    ours = cb_op.convnext_block(x, *args, bf16=True)
-    again = cb_op.convnext_block(x, *args, bf16=True)
-    plain = cb_op.convnext_block_plain(x, *args, bf16=True)
+    count = ops.launch_counts()["convnext_block"]
+    ours = cb_op.convnext_block(x, *args, bf16=True)  # makes the [N, K] weight copies
     torch.cuda.synchronize()
-    after = ops.launch_counts()
-    assert after["convnext_block"] == counts["convnext_block"] + 2 and after["gemm_tc"] == counts["gemm_tc"] + 4
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        again = cb_op.convnext_block(x, *args, bf16=True)
+        torch.cuda.synchronize()
+    plain = cb_op.convnext_block_plain(x, *args, bf16=True)
+    assert ops.launch_counts()["convnext_block"] == count + 2
+    kernels = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    assert len(kernels) == 3 and "dwconv_ln_kernel" in kernels[0], kernels
+    assert all("gemm_tc_kernel" in k for k in kernels[1:]), kernels  # both MLP products on the tensor cores
     assert ours.dtype == x.dtype and torch.equal(ours, again)
     assert float((ours.float() - plain.float()).abs().max()) < 0.1
 
@@ -378,9 +384,6 @@ def test_convnext_block_bf16_mlp_raises_on_widths_not_a_multiple_of_64(setup, c,
 @pytest.mark.gpu
 @pytest.mark.parametrize("b,t,hop", [(1, 239872, 256), (2, 8192, 64)])
 def test_mel_spectrogram_is_one_launch_with_repeatable_bits(setup, b, t, hop):
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     dev, _, rng = setup
     x = torch.as_tensor(0.1 * rng.standard_normal((b, t)).astype(np.float32), device=dev)
     x[:, t // 2:] = 0.0
