@@ -35,7 +35,17 @@ Phases; any failure exits non-zero before the final line:
      VoiceEmbeddingCache, 48 kHz and 44.1 kHz references through
      extract_voice_embedding, cloned speech streamed and batched (DynamicBatcher) —
      again with launch counts reset just before and read just after.
-  6. output: a `kernels` JSON line, the nvidia-smi line, then the `ok` JSON line.
+  6. service: the WS protocol end to end. A TTSService on the demo checkpoint (bf16,
+     both stack kernels, default voice assets/default_voice.wav) served through
+     `handle_connection` over an in-memory socket (no aiohttp on the card's machine):
+     register_voice (the default voice's samples declared at 30 kHz, a higher
+     voice), synthesize with that voice, with an unknown voice (the default
+     voice), list_voices, wav and each of mp3/opus the host offers, metadata,
+     cancel; time to first audio (TTFA) and to synthesis_complete over 16 requests at
+     concurrency 1 and 4 rounds of 4 connections; synthesize_full (REST without HTTP);
+     the /health and /metrics bodies; shutdown. Launch counts reset after start() and
+     read before shutdown: the mel, transformer and Vocos kernels each launched.
+  7. output: a `kernels` JSON line, the nvidia-smi line, then the `ok` JSON line.
 
 Bounds (max |error| unless named):
   kernels f32: KERNEL_F32_BOUND (summation order through up to 8 layers);
@@ -51,7 +61,10 @@ Bounds (max |error| unless named):
     split TF32, under a log; the JAX kernel test's bound);
   ConvNeXt block chained 8 times vs the stack kernel, f32: CHAIN_VS_STACK_BOUND; in
     bf16 vs eight plain blocks: KERNEL_BF16_BOUND;
-  voice path: see VOICE_BOUNDS.
+  voice path: see VOICE_BOUNDS;
+  service: WS audio vs batcher.submit of the same sentence and embedding,
+    VOICE_BOUNDS["cloned_batch_vs_stream"]; wav framing vs pcm framing of the same
+    text, one int16 step; an unknown voice vs the default voice, SERVICE_FALLBACK_BOUND.
 """
 
 from __future__ import annotations
@@ -93,6 +106,10 @@ VOICE_BOUNDS = {
     "cloned_batch_vs_stream": ENGINE_BOUNDS["two_stage_vs_one_graph"],
 }
 VOICE_WAV = os.path.join("assets", "default_voice.wav")
+# The same sentence, voice and batch shape twice through the service: the same kernels
+# on the same inputs, so within one PCM16 step.
+SERVICE_FALLBACK_BOUND = 1.01 / 32767
+SERVICE_SHUTDOWN_S = 35.0
 
 H100_BYTES_PER_S = 3.35e12
 # Dense tensor-core bf16; f32 off the tensor cores; f32-grade products as split TF32 on
@@ -733,6 +750,247 @@ def run_voice(torch, np, report):
     return launches, checks
 
 
+# ------------------------------------------------------------------ phase 6
+
+
+class MemorySocket:
+    """The WebSocket as TTSService sees it: an async iterator of inbound messages
+    (`.type`, `.data`) and `send_json` / `send_bytes` / `close`, each outbound frame
+    recorded with `time.perf_counter()`. The client side ends the stream (a CLOSE
+    message) only after its last synthesis_complete: the service drops a
+    connection's pending output as soon as its receive side ends."""
+
+    class Msg:
+        def __init__(self, type_, data):
+            self.type, self.data = type_, data
+
+    def __init__(self, msg_types):
+        self.types = msg_types
+        self.inbound: asyncio.Queue = asyncio.Queue()
+        self.frames = []  # (perf_counter, "json" | "binary", payload)
+        self.changed = asyncio.Event()
+        self.closed = False
+
+    def __aiter__(self):
+        return self
+
+    async def __anext__(self):
+        msg = await self.inbound.get()
+        if msg is None:
+            raise StopAsyncIteration
+        return msg
+
+    def _record(self, kind, payload):
+        self.frames.append((time.perf_counter(), kind, payload))
+        self.changed.set()
+
+    async def send_json(self, data):
+        self._record("json", data)
+
+    async def send_bytes(self, data):
+        self._record("binary", bytes(data))
+
+    async def close(self, **_):
+        self.closed = True
+
+    async def end(self):
+        await self.inbound.put(self.Msg(self.types.CLOSE, None))
+        await self.inbound.put(None)
+
+    async def request(self, message: dict, until):
+        """Send one message; return (send time, the frames up to and including the
+        first JSON frame whose type is in `until`)."""
+        start = len(self.frames)
+        t0 = time.perf_counter()
+        await self.inbound.put(self.Msg(self.types.TEXT, json.dumps(message)))
+        while True:
+            for i in range(start, len(self.frames)):
+                _, kind, payload = self.frames[i]
+                if kind == "json" and payload.get("type") in until:
+                    return t0, self.frames[start:i + 1]
+            self.changed.clear()
+            await asyncio.wait_for(self.changed.wait(), 120)
+
+
+def synthesis_ok(frames, metadata=False) -> bool:
+    """Binary frames then synthesis_complete with chunk_id = their count (after a
+    synthesis_started where metadata was asked)."""
+    kinds = [k for _, k, _ in frames]
+    if metadata:
+        if not frames or frames[0][2] != {"type": "synthesis_started"}:
+            return False
+        frames, kinds = frames[1:], kinds[1:]
+    n = len(frames) - 1
+    return (n > 0 and kinds[:n] == ["binary"] * n
+            and frames[-1][2] == {"type": "synthesis_complete", "chunk_id": n})
+
+
+def pcm_of(np, frames):
+    return [np.frombuffer(p, np.float32) for _, k, p in frames if k == "binary"]
+
+
+def percentiles(np, xs) -> dict:
+    return {"p50": float(np.percentile(xs, 50)), "p95": float(np.percentile(xs, 95)), "n": len(xs)}
+
+
+def run_service(torch, np, report):
+    from gonova_tts_tpu_torch import ops
+    from gonova_tts_tpu_torch.audio import encode
+    from gonova_tts_tpu_torch.service import TTSService
+    from gonova_tts_tpu_torch.service.server import WSMsgType
+    from gonova_tts_tpu_torch.utils import read_wav, write_wav
+
+    # The registered voice is the default voice's samples declared at 30 kHz: the same
+    # speaker a quarter higher and 4 s long, so the clone must differ from the default.
+    voice, _ = read_wav(VOICE_WAV)
+    payload = base64.b64encode(write_wav(None, voice, 30000)).decode()
+    formats = encode.available_formats(24000)
+    out = {"formats_offered": formats}
+
+    async def timed_request(sock, message):
+        """(frames, ms to the first binary frame or None, ms to the last frame, seconds
+        of pcm audio)."""
+        t0, frames = await sock.request(message, ("synthesis_complete", "error"))
+        first = [t for t, k, _ in frames if k == "binary"][:1]
+        pcm = message.get("format", "pcm") == "pcm"
+        audio_s = sum(p.size for p in pcm_of(np, frames)) / 24000 if pcm else 0.0
+        return frames, (first[0] - t0) * 1e3 if first else None, (frames[-1][0] - t0) * 1e3, audio_s
+
+    async def drive(voice_dir):
+        cfg = engine_config("bfloat16", kernels=True)
+        cfg.voice_cloning.cache_dir = voice_dir
+        cfg.voice_cloning.default_voice_path = VOICE_WAV
+        cfg.logging.level = "WARNING"
+        t0 = time.perf_counter()
+        svc = TTSService(cfg)
+        await svc.start()
+        out["start_s"] = time.perf_counter() - t0
+        eng = svc.synthesizer.engine
+        if not (eng.device.type == "cuda" and eng.mcfg.acoustic_pallas and eng.mcfg.vocos_pallas and eng.ecfg.mel_pallas):
+            fail("the service would not take the kernels")
+        checks = {"default_voice_loaded": svc._default_speaker is not None}
+        # Each device pass the batcher dispatches, timed on the host clock (the engine
+        # returns host arrays, so a pass ends after its readback): (start, end, batch).
+        passes, run_batch = [], eng.synthesize_batch
+
+        def timed_batch(texts, *args, **kwargs):
+            start = time.perf_counter()
+            result = run_batch(texts, *args, **kwargs)
+            passes.append((start, time.perf_counter(), len(texts)))
+            return result
+
+        eng.synthesize_batch = timed_batch
+        # The main path: launch counts from zero, read right after.
+        ops.reset_launch_counts()
+
+        sock = MemorySocket(WSMsgType)
+        conn = asyncio.create_task(svc.handle_connection(sock, "smoke-0"))
+        _, reg = await sock.request({"type": "register_voice", "voice_id": "smoke-voice", "reference_audio": payload},
+                                    ("voice_registered", "error"))
+        checks["voice_registered"] = reg[-1][2] == {"type": "voice_registered", "voice_id": "smoke-voice"}
+        say = {"type": "synthesize", "text": SENTENCES[0]}
+        cloned, *_ = await timed_request(sock, {**say, "voice_id": "smoke-voice"})
+        nobody, *_ = await timed_request(sock, {**say, "voice_id": "nobody"})
+        default, *_ = await timed_request(sock, say)
+        _, listed = await sock.request({"type": "list_voices"}, ("voice_list",))
+        checks["voice_list"] = any(v["voice_id"] == "smoke-voice" for v in listed[-1][2]["voices"])
+        encoded = {}
+        for fmt in [f for f in ("wav", "mp3", "opus") if f in formats]:
+            encoded[fmt], *_ = await timed_request(sock, {**say, "voice_id": "smoke-voice", "format": fmt})
+        announced, *_ = await timed_request(sock, {**say, "metadata": True})
+        _, cancelled = await sock.request({"type": "cancel"}, ("cancelled",))
+        checks["cancelled"] = cancelled[-1][2] == {"type": "cancelled"}
+
+        # TTFA at concurrency 1: 16 requests in turn on one connection.
+        mark = len(passes)
+        c1 = [await timed_request(sock, {"type": "synthesize", "text": SENTENCES[i % 4]}) for i in range(16)]
+        c1_passes = [(e - b) * 1e3 for b, e, _ in passes[mark:]]
+        await sock.end()
+        await conn
+
+        # Concurrency 4: four connections at once, one sentence each, four rounds.
+        c4, c4_wall, c4_audio, c4_rounds = [], 0.0, 0.0, []
+        for r in range(4):
+            socks = [MemorySocket(WSMsgType) for _ in SENTENCES]
+            conns = [asyncio.create_task(svc.handle_connection(s, f"smoke-{r}-{i}")) for i, s in enumerate(socks)]
+            mark, t0 = len(passes), time.perf_counter()
+            rs = await asyncio.gather(*[timed_request(s, {"type": "synthesize", "text": t}) for s, t in zip(socks, SENTENCES)])
+            c4_wall += time.perf_counter() - t0
+            c4_rounds.append({  # ms from the round's first send
+                "ttfa_ms": [x[1] for x in rs],
+                "passes_start_end_batch": [((b - t0) * 1e3, (e - t0) * 1e3, n) for b, e, n in passes[mark:]],
+            })
+            c4_audio += sum(x[3] for x in rs)
+            c4 += rs
+            for s in socks:
+                await s.end()
+            await asyncio.gather(*conns)
+
+        full = await svc.synthesize_full(STREAM_TEXT)
+        spk = svc.voice_embeddings.get("smoke-voice")
+        direct = await svc.batcher.submit(SENTENCES[0], spk, cfg.synthesis.default_exaggeration)
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()
+        health_status, health = svc.health()
+        metrics, prom = svc.metrics(), svc.metrics_prometheus()
+        batcher = dict(svc.batcher.metrics)
+        t0 = time.perf_counter()
+        await svc.shutdown()
+        out["shutdown_s"] = time.perf_counter() - t0
+
+        requests = [cloned, nobody, default, announced, *encoded.values()] + [x[0] for x in c1 + c4]
+        pcm_requests = [cloned, nobody, default] + [x[0] for x in c1 + c4]
+        checks["frame_order"] = all(synthesis_ok(f) for f in requests if f is not announced) and synthesis_ok(announced, True)
+        checks["pcm_finite_nonempty"] = all(
+            p.size > 0 and np.isfinite(p).all() for f in pcm_requests + [announced] for p in pcm_of(np, f)
+        )
+        ws_cloned, ws_nobody, ws_default = (np.concatenate(pcm_of(np, f)) for f in (cloned, nobody, default))
+        checks["cloned_differs_from_default_voice"] = (
+            ws_cloned.shape != ws_default.shape or float(np.abs(ws_cloned - ws_default).max()) > 1e-3)
+        fallback = max_diff([ws_nobody], [ws_default])
+        checks["unknown_voice_is_default_voice"] = fallback <= SERVICE_FALLBACK_BOUND
+        ws_vs_batcher = max_diff([ws_cloned], [direct])
+        checks["cloned_ws_vs_batcher"] = ws_vs_batcher <= VOICE_BOUNDS["cloned_batch_vs_stream"]
+        wav = b"".join(p for _, k, p in encoded.get("wav", []) if k == "binary")
+        wav_pcm = np.frombuffer(wav[44:], np.int16).astype(np.int32)
+        pcm16 = np.clip(ws_cloned * 32767.0, -32767.0, 32767.0).astype(np.int16).astype(np.int32)
+        checks["wav_framing_matches_pcm"] = (
+            wav[:4] == b"RIFF" and wav_pcm.shape == pcm16.shape and int(np.abs(wav_pcm - pcm16).max()) <= 1)
+        blobs = {f: b"".join(p for _, k, p in fr if k == "binary") for f, fr in encoded.items()}
+        checks["encoded_formats"] = all(synthesis_ok(fr) for fr in encoded.values()) and (
+            "mp3" not in blobs or (blobs["mp3"][0] == 0xFF and (blobs["mp3"][1] & 0xE0) == 0xE0)) and (
+            "opus" not in blobs or (blobs["opus"][:4] == b"OggS" and b"OpusHead" in blobs["opus"][:64]))
+        full_s = full.size / 24000
+        checks["synthesize_full"] = bool(np.isfinite(full).all()) and 1.0 < full_s < 20.0
+        checks["health"] = (health_status == 200 and health["status"] == "healthy"
+                            and health["tpu"]["backend"] == "cuda" and health["tpu"]["device_count"] >= 1)
+        checks["metrics"] = metrics["requests_received"] >= len(requests) and "gonova_tts_batcher_batches" in prom
+        checks["shutdown"] = out["shutdown_s"] < SERVICE_SHUTDOWN_S and svc.active_connections == 0
+        checks["service_launches_positive"] = all(
+            launches.get(k, 0) > 0 for k in ("mel_spectrogram", "transformer_stack", "vocos_stack"))
+        checks["ttfa_every_request"] = all(x[1] is not None for x in c1 + c4)
+        c1_audio, c1_wall = sum(x[3] for x in c1), sum(x[2] for x in c1) / 1e3
+        ttfa = lambda rs: percentiles(np, [x[1] for x in rs if x[1] is not None] or [float("nan")])  # noqa: E731
+        out.update({
+            "ttfa_ms": {"concurrency1": ttfa(c1), "concurrency4": ttfa(c4)},
+            "complete_ms": {"concurrency1": percentiles(np, [x[2] for x in c1]), "concurrency4": percentiles(np, [x[2] for x in c4])},
+            "audio_s_per_s": {"concurrency1": c1_audio / c1_wall, "concurrency4": c4_audio / c4_wall},
+            "engine_pass_ms_concurrency1": percentiles(np, c1_passes), "concurrency4_rounds": c4_rounds,
+            "synthesize_full_audio_s": full_s, "unknown_voice_vs_default": fallback,
+            "cloned_ws_vs_batcher": ws_vs_batcher, "batcher": batcher, "launches": launches,
+            "health": {k: health[k] for k in ("status", "device", "tpu", "device_health")},
+            "checks": checks,
+        })
+        return launches, checks
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as voice_dir:
+        launches, checks = asyncio.run(drive(voice_dir))
+    out["phase_s"] = time.perf_counter() - t0
+    report["service"] = out
+    return launches, checks
+
+
 def main() -> None:
     try:
         import numpy as np
@@ -781,6 +1039,8 @@ def main() -> None:
     print("voice: " + json.dumps(report["voice_path"]), flush=True)
     print("embed_voice latency: cold {embed_voice_cold_ms:.1f} ms, warm {embed_voice_warm_ms:.2f} ms".format(
         **report["voice_path"]), flush=True)
+    service_launches, service_checks = run_service(torch, np, report)
+    print("service: " + json.dumps(report["service"]), flush=True)
     mel_voice = next(c for c in mel_cs if c["case"] == "voice B=1 T=239872")
     print("mel kernel at the voice path's shape: " + json.dumps(
         {k: mel_voice[k] for k in ("ms", "device_ms", "plain_ms", "matmul_ms", "bound_ms", "gflop")}), flush=True)
@@ -802,12 +1062,15 @@ def main() -> None:
     kernels = [
         entry("transformer_stack", "gonova_tts_tpu/ops/transformer_stack_kernel.py:332", ts_cases,
               "decoder B=4 T=512", "bfloat16", launches.get("transformer_stack", 0),
-              launches_voice_path=voice_launches.get("transformer_stack", 0)),
+              launches_voice_path=voice_launches.get("transformer_stack", 0),
+              launches_service_path=service_launches.get("transformer_stack", 0)),
         entry("vocos_stack", "gonova_tts_tpu/ops/vocos_stack_kernel.py:143", vs_cases,
               "B=4 T=320", "bfloat16", launches.get("vocos_stack", 0),
-              launches_voice_path=voice_launches.get("vocos_stack", 0)),
+              launches_voice_path=voice_launches.get("vocos_stack", 0),
+              launches_service_path=service_launches.get("vocos_stack", 0)),
         entry("mel_spectrogram", "gonova_tts_tpu/ops/mel_kernel.py:151", mel_cs,
-              "voice B=1 T=239872", "float32", voice_launches.get("mel_spectrogram", 0)),
+              "voice B=1 T=239872", "float32", voice_launches.get("mel_spectrogram", 0),
+              launches_service_path=service_launches.get("mel_spectrogram", 0)),
         entry("convnext_block", "gonova_tts_tpu/ops/convnext_kernel.py:146", cb_cases + [chain, chain_bf16],
               "B=4 T=320", "x bfloat16, mlp bfloat16", chain["launches"] + chain_bf16["launches"],
               launches_f32_chain=chain["launches"], launches_bf16_chain=chain_bf16["launches"],
@@ -815,7 +1078,7 @@ def main() -> None:
     ]
     bad = [f"{c['case']} {c['dtype']}" for c in gm_cases + ts_cases + vs_cases + mel_cs + cb_cases + [chain, chain_bf16]
            if not c["ok"]]
-    bad += [k for k, v in {**kernel_checks, **checks, **voice_checks}.items() if not v]
+    bad += [k for k, v in {**kernel_checks, **checks, **voice_checks, **service_checks}.items() if not v]
     bad += [f"{k['name']} never launched on its path" for k in kernels if k["launches"] <= 0]
     if bad:
         print(json.dumps({"kernels": kernels}), flush=True)

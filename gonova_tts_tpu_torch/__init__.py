@@ -9,4 +9,6 @@ The two Pallas kernels on the text → PCM path are hand-written CUDA kernels in
 from .config import Config, load_config
 from .device import resolve_device
 
-__all__ = ["Config", "load_config", "resolve_device"]
+__version__ = "0.1.0"
+
+__all__ = ["Config", "load_config", "resolve_device", "__version__"]

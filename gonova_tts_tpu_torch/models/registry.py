@@ -1,0 +1,93 @@
+"""Model registry: named model families with init/forward entry points.
+
+The port's counterpart of `gonova_tts_tpu/models/registry.py`, over the port's own
+modules. `init(g, cfg)` builds a family's parameters from a `torch.Generator`;
+`forward` is the same function the JAX family names. The HiFi-GAN family
+(`novagan`) is not ported yet, so `get("novagan")` raises like any unknown name.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable, Dict
+
+import torch
+
+from ..config import ModelConfig
+from . import acoustic, speaker, tts, vocos
+
+
+@dataclass(frozen=True)
+class ModelFamily:
+    name: str
+    kind: str  # "acoustic" | "vocoder" | "speaker" | "pipeline"
+    description: str
+    init: Callable
+    forward: Callable
+
+
+_REGISTRY: Dict[str, ModelFamily] = {}
+
+
+def register(family: ModelFamily) -> None:
+    _REGISTRY[family.name] = family
+
+
+def get(name: str) -> ModelFamily:
+    if name not in _REGISTRY:
+        raise KeyError(f"unknown model family {name!r}; have {sorted(_REGISTRY)}")
+    return _REGISTRY[name]
+
+
+def available() -> Dict[str, ModelFamily]:
+    return dict(_REGISTRY)
+
+
+def _acoustic_init(g: torch.Generator, cfg: ModelConfig) -> acoustic.AcousticModel:
+    return acoustic.AcousticModel(cfg, g)
+
+
+def _vocos_init(g: torch.Generator, cfg: ModelConfig) -> vocos.Vocos:
+    return vocos.Vocos(cfg, g)
+
+
+def _tts_init(g: torch.Generator, cfg: ModelConfig) -> tts.TTS:
+    return tts.TTS(cfg, g)
+
+
+register(
+    ModelFamily(
+        name="novaspeech",
+        kind="acoustic",
+        description="FastPitch-class non-AR acoustic model (phonemes+speaker → mel)",
+        init=_acoustic_init,
+        forward=acoustic.forward,
+    )
+)
+register(
+    ModelFamily(
+        name="novavocos",
+        kind="vocoder",
+        description="iSTFT-head frame-rate vocoder (Vocos-class, the serving vocoder)",
+        init=_vocos_init,
+        forward=vocos.forward,
+    )
+)
+register(
+    ModelFamily(
+        name="novaspk",
+        kind="speaker",
+        description="Speaker encoder for one-shot voice cloning (mel → 256-d embedding)",
+        init=speaker.init,
+        forward=speaker.forward,
+    )
+)
+register(
+    ModelFamily(
+        name="novatts",
+        kind="pipeline",
+        description="Full pipeline: acoustic + vocoder + speaker encoder",
+        init=_tts_init,
+        forward=tts.synthesize,
+    )
+)

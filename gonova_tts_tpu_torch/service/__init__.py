@@ -1,11 +1,13 @@
-"""Service core of the port: synthesizer facade, queues, voices, rate limiting.
+"""Service of the port: the WS/REST server's `TTSService`, synthesizer facade, queues,
+voices, rate limiting.
 
-Own copies of the JAX package's `service/` modules (none of which imports JAX).
-The aiohttp server (`service/server.py`) is not ported yet: ROADMAP.md.
+Own copies of the JAX package's `service/` modules. Importing this package does not
+import aiohttp: only `server.create_app` and its handlers need it.
 """
 
 from .queue_manager import AudioChunk, SynthesisRequest, TTSQueueManager
 from .rate_limiter import RateLimiter
+from .server import TTSService
 from .synthesizer import StreamingSynthesizer
 from .voice_manager import VoiceManager, sanitize_voice_id, validate_reference_audio
 
@@ -15,6 +17,7 @@ __all__ = [
     "TTSQueueManager",
     "RateLimiter",
     "StreamingSynthesizer",
+    "TTSService",
     "VoiceManager",
     "sanitize_voice_id",
     "validate_reference_audio",

@@ -1,7 +1,8 @@
 """StreamingSynthesizer — protocol-compatible facade over the port's engine.
 
-Counterpart of `gonova_tts_tpu/service/synthesizer.py`, same surface; `device`
-defaults to "cuda" and is what the engine is built on ("cpu" for the tests).
+Counterpart of `gonova_tts_tpu/service/synthesizer.py`, same surface. `device` is what
+the engine is built on; left as `None` it is `config.model.device`, as `TTSEngine`
+resolves it ("cuda" by default: without a card that raises, it never falls back).
 
 Keeps the reference class surface (services/tts/core/synthesizer.py:102-429):
 `load()`, async-generator `synthesize_streaming(text, voice_embedding, chunk_size,
@@ -35,7 +36,7 @@ class StreamingSynthesizer:
         self,
         config: Optional[Config] = None,
         model_path: Optional[str] = None,
-        device: str = "cuda",
+        device: Optional[str] = None,
         device_index: int = 0,
         chunk_size: int = 50,
         sample_rate: int = 24000,
@@ -43,11 +44,11 @@ class StreamingSynthesizer:
         self.config = config or Config()
         if model_path is not None:
             self.config.model.model_path = model_path
-        self.device = device
         self.device_index = device_index
         self.chunk_size = chunk_size  # accepted-but-unused, like the reference (:226)
         self.sample_rate = sample_rate
         self.engine = TTSEngine(self.config, device=device)
+        self.device = self.engine.device
 
     @property
     def is_loaded(self) -> bool:

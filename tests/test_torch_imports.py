@@ -37,3 +37,4 @@ def test_scan_sees_the_whole_port():
     assert {"mel_spectrogram.py", "convnext_block.py", "resample.py", "mel.py", "speaker.py", "batcher.py",
             "voice_cache.py", "voice_manager.py", "queue_manager.py", "rate_limiter.py", "synthesizer.py",
             "wavio.py", "jsonlog.py", "native.py"} <= names
+    assert {"server.py", "encode.py", "ola.py", "cli.py", "registry.py"} <= names

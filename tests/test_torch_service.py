@@ -839,6 +839,27 @@ def test_voice_embedding_accepts_path_and_array(synth, tmp_path):
     np.testing.assert_allclose(np.linalg.norm(emb), 1.0, atol=1e-4)
 
 
+def test_device_defaults_to_the_configs():
+    """Without a `device` argument the facade builds its engine on
+    `config.model.device`, as `TTSEngine` does."""
+    cfg = tiny_config()
+    cfg.model.device = "cpu"
+    s = StreamingSynthesizer(cfg)
+    assert s.device == torch.device("cpu") and s.engine.device == torch.device("cpu")
+    asyncio.run(s.load())
+    assert s.is_loaded
+    assert next(s.engine.params.parameters()).device == torch.device("cpu")
+
+
+def test_default_device_without_a_card_raises(monkeypatch):
+    """The default `model.device` is "cuda": on a host without a card the facade
+    raises instead of running on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert tiny_config().model.device == "cuda"
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        StreamingSynthesizer(tiny_config())
+
+
 def test_cleanup_unloads(synth):
     s = StreamingSynthesizer(tiny_config(), device="cpu")
     asyncio.run(s.load())
