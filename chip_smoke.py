@@ -45,7 +45,27 @@ Phases; any failure exits non-zero before the final line:
      concurrency 1 and 4 rounds of 4 connections; synthesize_full (REST without HTTP);
      the /health and /metrics bodies; shutdown. Launch counts reset after start() and
      read before shutdown: the mel, transformer and Vocos kernels each launched.
-  7. output: a `kernels` JSON line, the nvidia-smi line, then the `ok` JSON line.
+  7. parity: parity_gpu.py's bf16 gate (parity.py's workload and limits: mel MSE <
+     1e-2, MCD < 1.0 dB, MR-STFT < 0.3), f32 plain path vs bf16 with both stack
+     kernels, on random weights (seed 0) and on the demo checkpoint; and the engine's
+     bf16 two-stage audio vs its bf16 one-graph audio, graded by the same metrics.
+     Launch counts of both stacks over the phase (each must move), its wall time.
+     A gate that fails fails the run.
+  8. train: (a) three f32 steps of make_train_step at full width on the card and on
+     the CPU from one seeded tree and one synthetic batch: loss parts agree within
+     TRAIN_CARD_VS_CPU_RTOL per step, and no kernel launches. (b) the demo corpus
+     (4 speakers x 12 sentences, variable durations, 2 held out), then
+     `train.loop.train` resident at full width on the card (TRAIN_STEPS steps,
+     chunk 50, warmup 50, batch 8, lr 2e-4, the MAS aligner learned in the step):
+     every logged metric finite, `total` falling, no kernel launched; data
+     preparation and training wall time, ms per step, peak device memory, the
+     step-200 losses beside the JAX package's run in assets/train_history_demo_r3.jsonl.
+     (c) the checkpoint root served by a TTSEngine in bf16 with both stack kernels
+     (counts reset just before, read just after): a held-out sentence in a corpus
+     speaker's cloned voice, finite and not silent, both stacks launched. (d) one
+     warm training step profiled: the MAS loops alone, device busy and idle share,
+     host-to-device copies, the top kernels.
+  9. output: a `kernels` JSON line, the nvidia-smi line, then the `ok` JSON line.
 
 Bounds (max |error| unless named):
   kernels f32: KERNEL_F32_BOUND (summation order through up to 8 layers);
@@ -110,6 +130,12 @@ VOICE_WAV = os.path.join("assets", "default_voice.wav")
 # on the same inputs, so within one PCM16 step.
 SERVICE_FALLBACK_BOUND = 1.01 / 32767
 SERVICE_SHUTDOWN_S = 35.0
+# f32 with TF32 off on the card: the same products as the CPU in another summation
+# order, carried through three Adam steps.
+TRAIN_CARD_VS_CPU_RTOL = 1e-3
+TRAIN_STEPS = 200
+JAX_HISTORY = os.path.join("assets", "train_history_demo_r3.jsonl")
+NOT_SILENT_RMS = 1e-4  # about three PCM16 steps
 
 H100_BYTES_PER_S = 3.35e12
 # Dense tensor-core bf16; f32 off the tensor cores; f32-grade products as split TF32 on
@@ -991,6 +1017,242 @@ def run_service(torch, np, report):
     return launches, checks
 
 
+# ------------------------------------------------------------------ phase 7
+
+
+def run_parity(torch, np, report):
+    import parity_gpu
+    from gonova_tts_tpu_torch import ops
+    from gonova_tts_tpu_torch.config import ModelConfig
+    from gonova_tts_tpu_torch.models import params, tts
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    ops.reset_launch_counts()
+    model = tts.TTS(ModelConfig(), torch.Generator().manual_seed(0)).to(dev)
+    lines = [{**parity_gpu.parity(model, ModelConfig()), "weights": "random seed 0"}]
+    model, cfg = params.load_checkpoint(parity_gpu.DEMO, ModelConfig(), dev)
+    lines.append({**parity_gpu.parity(model, cfg), "weights": "demo_ema_f16.npz"})
+    del model
+    eng = parity_gpu.demo_engine(dev)
+    lines.append({**parity_gpu.engine_parity(eng), "weights": "demo_ema_f16.npz"})
+    torch.cuda.synchronize()
+    launches = ops.launch_counts()
+    checks = {
+        "parity_random_init": lines[0]["pass"],
+        "parity_demo_checkpoint": lines[1]["pass"],
+        "parity_two_stage_vs_one_graph": lines[2]["pass"],
+        "parity_launches_positive": all(launches.get(k, 0) > 0 for k in ("transformer_stack", "vocos_stack")),
+    }
+    report["parity"] = {"lines": lines, "launches": launches, "phase_s": time.perf_counter() - t0, "checks": checks}
+    return launches, checks
+
+
+# ------------------------------------------------------------------ phase 8
+
+
+class LogRecords:
+    """Collects the trainer's structured log events (event name, fields)."""
+
+    def __init__(self, name):
+        import logging
+
+        self.events = []
+        self.logger = logging.getLogger(name)
+        self.logger.setLevel(logging.INFO)  # the service phase set the root to WARNING
+        self.handler = logging.Handler()
+        self.handler.emit = lambda r: self.events.append((r.getMessage(), dict(getattr(r, "_fields", {}))))
+        self.logger.addHandler(self.handler)
+
+    def close(self):
+        self.logger.removeHandler(self.handler)
+
+
+def train_card_vs_cpu(torch, np, smi):
+    """Three f32 steps on the card and on the CPU from one tree and one batch."""
+    import copy
+
+    from gonova_tts_tpu_torch import ops
+    from gonova_tts_tpu_torch.config import ModelConfig
+    from gonova_tts_tpu_torch.models import tts
+    from gonova_tts_tpu_torch.train import step as tstep
+
+    cfg = ModelConfig()
+    model = tts.TTS(cfg, torch.Generator().manual_seed(1))
+    batch = tstep.synthetic_batch(cfg, batch=4, tokens=16, seed=2, device="cpu")
+    runs, times = {}, {}
+    for where in ("cpu", "cuda"):
+        state = tstep.init_state(copy.deepcopy(model).to(where), tstep.make_optimizer(lr=2e-4, warmup=1, decay_steps=10))
+        step = tstep.make_train_step(cfg)
+        moved = {k: v.to(where) for k, v in batch.items()}
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        runs[where] = [{k: float(v) for k, v in step(state, moved)[1].items()} for _ in range(3)]
+        times[where] = (time.perf_counter() - t0) / 3 * 1e3
+        if any(ops.launch_counts().values()):
+            fail(f"a training step launched a kernel: {ops.launch_counts()}")
+    worst = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-12) for a, b in zip(runs["cuda"], runs["cpu"]) for k in b)
+    return {
+        "config": "ModelConfig() full width, f32, synthetic_batch(batch=4, tokens=16)",
+        "steps": runs, "worst_rel_diff": worst, "bound": TRAIN_CARD_VS_CPU_RTOL,
+        "ms_per_step": times, "device": smi,
+    }, worst <= TRAIN_CARD_VS_CPU_RTOL
+
+
+def profile_train_step(torch, np, batch: dict) -> dict:
+    """Where one warm demo-corpus training step's time goes (full width, f32, the
+    aligner learned): the step's host-clock time, the MAS aligner's two frame loops
+    alone (the forward sum with its backward, and the Viterbi durations) on the
+    step's own scores, and one torch.profiler trace of the step (device busy time
+    and idle share, host-to-device copies, kernel count, the top kernels)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as tprofile
+
+    from gonova_tts_tpu_torch.config import ModelConfig
+    from gonova_tts_tpu_torch.models import aligner, tts
+    from gonova_tts_tpu_torch.train import step as tstep
+
+    cfg = ModelConfig()
+    state = tstep.init_state(
+        tts.TTS(cfg, torch.Generator().manual_seed(0), with_aligner=True).cuda(),
+        tstep.make_optimizer(lr=2e-4, warmup=50, decay_steps=TRAIN_STEPS),
+    )
+    step = tstep.make_train_step(cfg, learn_alignment=True)
+    b = {k: torch.as_tensor(v).cuda() for k, v in batch.items()}
+
+    def host_ms(fn, reps=5):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / reps * 1e3
+
+    step_ms = host_ms(lambda: step(state, b))
+    tm, fm = b["token_mask"], b["frame_mask"]
+    prior = aligner.diagonal_prior(tm, fm, sigma=tstep.ALIGN_PRIOR_SIGMA)
+    log_p = aligner.log_probs(state.params.aligner, b["tokens"], b["align_mel"], tm, prior=prior, frame_mask=fm)
+    leaf = log_p.detach().requires_grad_(True)
+    fs_ms = host_ms(lambda: aligner.forward_sum_loss(leaf, tm, fm).backward())
+    mas_ms = host_ms(lambda: aligner.mas_durations(leaf.detach(), tm, fm))
+    for _ in range(2):  # the first trace pays the tracer's start-up
+        with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            step(state, b)
+            torch.cuda.synchronize()
+    # A user-annotated range (the optimizer's step) also shows as a device event
+    # spanning its kernels: leave it out, or its kernels count twice.
+    dev_events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+                  and e.self_device_time_total > 0 and not getattr(e, "is_user_annotation", False)]
+    if not dev_events:
+        return {"step_ms": step_ms, "note": "the profiler saw no device time: not measured"}
+    busy_ms = sum(e.self_device_time_total for e in dev_events) / 1e3
+    h2d = [e for e in dev_events if "HtoD" in e.key]
+    rows = sorted(dev_events, key=lambda e: e.self_device_time_total, reverse=True)
+    return {
+        "frames": int(fm.shape[1]), "tokens": int(tm.shape[1]), "batch": int(tm.shape[0]),
+        "step_ms": step_ms, "forward_sum_fwd_bwd_ms": fs_ms, "mas_durations_ms": mas_ms,
+        "device_busy_ms": busy_ms, "device_idle_share": max(0.0, 1 - busy_ms / step_ms),
+        "device_launches": sum(e.count for e in dev_events),
+        "h2d_copies": sum(e.count for e in h2d), "h2d_ms": sum(e.self_device_time_total for e in h2d) / 1e3,
+        "top": [{"kernel": e.key[:70], "ms": e.self_device_time_total / 1e3, "calls": e.count} for e in rows[:10]],
+    }
+
+
+def run_train(torch, np, report, smi):
+    from gonova_tts_tpu_torch import ops
+    from gonova_tts_tpu_torch.config import Config, EngineConfig, ModelConfig
+    from gonova_tts_tpu_torch.engine import TTSEngine
+    from gonova_tts_tpu_torch.text import text_to_ids
+    from gonova_tts_tpu_torch.train.loop import train
+    from gonova_tts_tpu_torch.train.synth_corpus import DEFAULT_SENTENCES, generate_corpus
+
+    t_phase = time.perf_counter()
+    out, checks = {}, {}
+    out["card_vs_cpu"], checks["train_card_vs_cpu"] = train_card_vs_cpu(torch, np, smi)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        generate_corpus(tmp, variable=True, holdout=2)
+        out["corpus_s"] = time.perf_counter() - t0
+        hist = os.path.join(tmp, "history.jsonl")
+        ckpt = os.path.join(tmp, "ckpt")
+        cfg = Config()
+        cfg.model = ModelConfig()
+        logs = LogRecords("gonova.train")
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        try:
+            final = train(
+                cfg, manifest=os.path.join(tmp, "manifest_train.txt"), resident=True, chunk=50,
+                steps=TRAIN_STEPS, warmup=50, batch_size=8, lr=2e-4, checkpoint_dir=ckpt,
+                history_path=hist, device="cuda",
+            )
+        finally:
+            logs.close()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        train_launches = ops.launch_counts()
+        history = [json.loads(x) for x in open(hist)]
+        steps = {f["step"]: f["elapsed_s"] for e, f in logs.events if e == "train_step"}
+        prep = next(f["prep_s"] for e, f in logs.events if e == "resident_corpus")
+        first, last = history[0], history[-1]
+        # Steady state: from the first logging point (its chunk pays the first-call costs).
+        steady = (steps[TRAIN_STEPS] - steps[50]) / (TRAIN_STEPS - 50) * 1e3
+        with open(JAX_HISTORY) as f:
+            jax_lines = [json.loads(x) for x in f]
+        jax_line = next(x for x in jax_lines if x.get("step") == TRAIN_STEPS and "phase" not in x)
+        out["demo_corpus"] = {
+            "recipe": "gonova-tts train --demo-corpus: 4 speakers x 12 sentences, variable durations, "
+                      "2 held out; full width f32, resident, chunk 50, warmup 50, batch 8, lr 2e-4, "
+                      "MAS aligner learned",
+            "steps": TRAIN_STEPS, "data_prep_s": prep, "train_wall_s": wall,
+            "ms_per_step_overall": (wall - prep) / TRAIN_STEPS * 1e3, "ms_per_step_steady": steady,
+            "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "device": smi, "history": history, "final": final,
+            "step200_port": last if last["step"] == 200 else None,
+            "step200_jax_package_run_r3": jax_line,
+            "step200_note": "loss values only (chunk means; the JAX run used chunk 200): not a speed comparison",
+            "launches_during_training": train_launches,
+        }
+        checks["train_metrics_finite"] = all(np.isfinite(v) for h in history for v in h.values())
+        checks["train_total_falls"] = last["total"] < first["total"]
+        checks["train_launches_no_kernel"] = not any(train_launches.values())
+
+        serve = Config()
+        serve.model = ModelConfig(model_path=ckpt, compute_dtype="bfloat16", vocos_pallas=True)
+        serve.engine = EngineConfig(acoustic_pallas=True, warmup_shapes=[[1, 32]])
+        eng = TTSEngine(serve)
+        eng.load(warmup=True)
+        held_out = DEFAULT_SENTENCES[-1]
+        ops.reset_launch_counts()
+        voice = eng.embed_voice_file(os.path.join(tmp, "ref_spk_mid.wav"))
+        wav = eng.synthesize_batch([held_out], speakers=[voice])[0]
+        torch.cuda.synchronize()
+        serve_launches = ops.launch_counts()
+        rms = float(np.sqrt(np.mean(wav**2))) if wav.size else 0.0
+        out["serving"] = {
+            "text": held_out, "tokens": len(text_to_ids(held_out)), "audio_s": wav.size / eng.sample_rate,
+            "rms": rms, "peak": float(np.abs(wav).max()) if wav.size else 0.0, "launches": serve_launches,
+        }
+        checks["trained_checkpoint_serves"] = bool(wav.size > 0 and np.isfinite(wav).all() and rms > NOT_SILENT_RMS)
+        checks["trained_checkpoint_launches_stacks"] = all(
+            serve_launches.get(k, 0) > 0 for k in ("transformer_stack", "vocos_stack"))
+        del eng
+        from gonova_tts_tpu_torch.train.data import ManifestDataset
+
+        one = next(ManifestDataset(
+            os.path.join(tmp, "manifest_train.txt"), ModelConfig(), batch_size=8, token_buckets=(64,),
+            ref_mel=True, learn_alignment=True,
+        ).epoch(0))
+        out["step_profile"] = profile_train_step(torch, np, one)
+    out["phase_s"] = time.perf_counter() - t_phase
+    out["checks"] = checks
+    report["train"] = out
+    return train_launches, serve_launches, checks
+
+
 def main() -> None:
     try:
         import numpy as np
@@ -1041,6 +1303,10 @@ def main() -> None:
         **report["voice_path"]), flush=True)
     service_launches, service_checks = run_service(torch, np, report)
     print("service: " + json.dumps(report["service"]), flush=True)
+    parity_launches, parity_checks = run_parity(torch, np, report)
+    print("parity: " + json.dumps(report["parity"]), flush=True)
+    train_launches, trained_serve_launches, train_checks = run_train(torch, np, report, smi)
+    print("train: " + json.dumps(report["train"]), flush=True)
     mel_voice = next(c for c in mel_cs if c["case"] == "voice B=1 T=239872")
     print("mel kernel at the voice path's shape: " + json.dumps(
         {k: mel_voice[k] for k in ("ms", "device_ms", "plain_ms", "matmul_ms", "bound_ms", "gflop")}), flush=True)
@@ -1063,14 +1329,22 @@ def main() -> None:
         entry("transformer_stack", "gonova_tts_tpu/ops/transformer_stack_kernel.py:332", ts_cases,
               "decoder B=4 T=512", "bfloat16", launches.get("transformer_stack", 0),
               launches_voice_path=voice_launches.get("transformer_stack", 0),
-              launches_service_path=service_launches.get("transformer_stack", 0)),
+              launches_service_path=service_launches.get("transformer_stack", 0),
+              launches_parity_path=parity_launches.get("transformer_stack", 0),
+              launches_training=train_launches.get("transformer_stack", 0),
+              launches_trained_checkpoint_serving=trained_serve_launches.get("transformer_stack", 0)),
         entry("vocos_stack", "gonova_tts_tpu/ops/vocos_stack_kernel.py:143", vs_cases,
               "B=4 T=320", "bfloat16", launches.get("vocos_stack", 0),
               launches_voice_path=voice_launches.get("vocos_stack", 0),
-              launches_service_path=service_launches.get("vocos_stack", 0)),
+              launches_service_path=service_launches.get("vocos_stack", 0),
+              launches_parity_path=parity_launches.get("vocos_stack", 0),
+              launches_training=train_launches.get("vocos_stack", 0),
+              launches_trained_checkpoint_serving=trained_serve_launches.get("vocos_stack", 0)),
         entry("mel_spectrogram", "gonova_tts_tpu/ops/mel_kernel.py:151", mel_cs,
               "voice B=1 T=239872", "float32", voice_launches.get("mel_spectrogram", 0),
-              launches_service_path=service_launches.get("mel_spectrogram", 0)),
+              launches_service_path=service_launches.get("mel_spectrogram", 0),
+              launches_training=train_launches.get("mel_spectrogram", 0),
+              launches_trained_checkpoint_serving=trained_serve_launches.get("mel_spectrogram", 0)),
         entry("convnext_block", "gonova_tts_tpu/ops/convnext_kernel.py:146", cb_cases + [chain, chain_bf16],
               "B=4 T=320", "x bfloat16, mlp bfloat16", chain["launches"] + chain_bf16["launches"],
               launches_f32_chain=chain["launches"], launches_bf16_chain=chain_bf16["launches"],
@@ -1078,7 +1352,8 @@ def main() -> None:
     ]
     bad = [f"{c['case']} {c['dtype']}" for c in gm_cases + ts_cases + vs_cases + mel_cs + cb_cases + [chain, chain_bf16]
            if not c["ok"]]
-    bad += [k for k, v in {**kernel_checks, **checks, **voice_checks, **service_checks}.items() if not v]
+    bad += [k for k, v in {**kernel_checks, **checks, **voice_checks, **service_checks, **parity_checks,
+                           **train_checks}.items() if not v]
     bad += [f"{k['name']} never launched on its path" for k in kernels if k["launches"] <= 0]
     if bad:
         print(json.dumps({"kernels": kernels}), flush=True)

@@ -9,7 +9,7 @@ against cos/sin bases, the same bases the fused mel kernel folds its window into
 from __future__ import annotations
 
 import functools
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -102,3 +102,54 @@ def spectrogram(
     if power == 1.0:
         return mag
     return mag**power
+
+
+def stft(
+    x: torch.Tensor, n_fft: int = 1024, hop_length: int = 256, win_length: int = 1024
+) -> torch.Tensor:
+    """Complex STFT [..., n_frames, n_fft // 2 + 1] (host-side convenience over
+    :func:`stft_ri`)."""
+    real, imag = stft_ri(x, n_fft, hop_length, win_length)
+    return torch.complex(real, imag)
+
+
+def istft(
+    spec,
+    n_fft: int = 1024,
+    hop_length: int = 256,
+    win_length: int = 1024,
+    length: Optional[int] = None,
+) -> torch.Tensor:
+    """Inverse STFT with windowed overlap-add, normalized by the summed squared
+    window (clamped at 1e-8). Takes a complex tensor [..., n_frames, n_fft//2+1]
+    or a (real, imag) tuple, and inverts :func:`stft`'s framing (reflect pad
+    (n_fft - hop) // 2 each side)."""
+    if isinstance(spec, tuple):
+        real, imag = spec
+    else:
+        real, imag = spec.real, spec.imag
+    dev = real.device
+    icos, isin = idft_bases(n_fft)
+    # stft_ri gives X = R + iI with I = -x @ sin; irfft needs R - i(-I).
+    frames = real @ torch.as_tensor(icos, device=dev) + (-imag) @ torch.as_tensor(isin, device=dev)
+    window_np = _full_window(n_fft, win_length)
+    frames = frames * torch.as_tensor(window_np, device=dev)
+
+    n_frames = frames.shape[-2]
+    total = n_fft + (n_frames - 1) * hop_length
+    batch_shape = frames.shape[:-2]
+    flat = frames.reshape(-1, n_frames, n_fft)
+    def overlap_add(fr):  # [N, n_frames, n_fft] → [N, total]: frame i at sample i * hop
+        return F.fold(
+            fr.transpose(1, 2), output_size=(1, total), kernel_size=(1, n_fft), stride=(1, hop_length)
+        ).reshape(fr.shape[0], total)
+
+    out = overlap_add(flat)
+    win_sq = torch.as_tensor(window_np * window_np, device=dev)
+    wsum = overlap_add(win_sq.expand(1, n_frames, n_fft))
+    y = out / torch.clamp(wsum, min=1e-8)
+    pad = (n_fft - hop_length) // 2
+    y = y[:, pad : total - pad].reshape(*batch_shape, -1)
+    if length is not None:
+        y = y[..., :length]
+    return y

@@ -1,11 +1,12 @@
-"""Command-line interface of the port: serve / synth / voices / info.
+"""Command-line interface of the port: serve / synth / train / voices / info.
 
 The counterpart of `gonova_tts_tpu/cli.py`, over the port's modules. The device is
-the config file's `model.device` ("cuda" unless the file says "cpu"). `bench` and
-`train` are not ported yet.
+the config file's `model.device` ("cuda" unless the file says "cpu"). `bench` is
+not ported yet.
 
     gonova-tts-torch serve [--port 8002]          # or python -m gonova_tts_tpu_torch.cli
     gonova-tts-torch synth "Hello." -o hello.wav [--voice-wav ref.wav]
+    gonova-tts-torch train --demo-corpus corpus_r3/ --checkpoint-dir ckpts/ --steps 200
 """
 
 from __future__ import annotations
@@ -60,6 +61,49 @@ def cmd_synth(args: argparse.Namespace) -> int:
     return 0
 
 
+def cmd_train(args: argparse.Namespace) -> int:
+    from .config import load_config
+    from .train.loop import train
+
+    manifest = args.manifest
+    resident = args.resident
+    if args.demo_corpus and args.manifest:
+        # Training on the generated corpus while the user passed their own data
+        # would be a surprise: refuse the combination.
+        print("--demo-corpus and --manifest are mutually exclusive", file=sys.stderr)
+        return 1
+    if args.demo_corpus:
+        # One-command demo: generate the deterministic formant corpus (variable
+        # per-token durations, 2 sentences per speaker held out) if absent, and
+        # train device-resident on its training split, alignment learned.
+        import os
+
+        from .train.synth_corpus import generate_corpus
+
+        manifest = os.path.join(args.demo_corpus, "manifest_train.txt")
+        if not os.path.exists(manifest):
+            generate_corpus(args.demo_corpus, variable=True, holdout=2)
+        resident = True
+    out = train(
+        config=load_config(args.config),
+        manifest=manifest,
+        steps=args.steps,
+        batch_size=args.batch_size,
+        lr=args.lr,
+        warmup=args.warmup,
+        checkpoint_dir=args.checkpoint_dir,
+        n_data=args.n_data,
+        n_model=args.n_model,
+        resident=resident,
+        chunk=args.chunk,
+        history_path=args.history,
+        learn_alignment=args.learn_alignment,
+        gan=args.gan,
+    )
+    print(json.dumps(out))
+    return 0
+
+
 def cmd_voices(args: argparse.Namespace) -> int:
     from .config import load_config
     from .service.voice_manager import VoiceManager
@@ -104,7 +148,7 @@ def main(argv=None) -> int:
     p.add_argument("--config", default=None)
     p.add_argument("--port", type=int, default=None)
     p.add_argument("--model-path", default=None, dest="model_path",
-                   help="checkpoint: a compact .npz")
+                   help="checkpoint: a .npz, or a training root (its newest step)")
     p.set_defaults(fn=cmd_serve)
 
     p = sub.add_parser("synth", help="offline synthesis to a WAV file")
@@ -114,8 +158,33 @@ def main(argv=None) -> int:
     p.add_argument("--exaggeration", type=float, default=0.5)
     p.add_argument("--config", default=None)
     p.add_argument("--model-path", default=None, dest="model_path",
-                   help="checkpoint: a compact .npz")
+                   help="checkpoint: a .npz, or a training root (its newest step)")
     p.set_defaults(fn=cmd_synth)
+
+    p = sub.add_parser("train", help="train the pipeline on one device (see train/loop.py)")
+    p.add_argument("--manifest", default=None)
+    p.add_argument("--steps", type=int, default=1000)
+    p.add_argument("--batch-size", type=int, default=8)
+    p.add_argument("--lr", type=float, default=2e-4)
+    p.add_argument("--warmup", type=int, default=1000)
+    p.add_argument("--checkpoint-dir", default=None)
+    p.add_argument("--n-data", type=int, default=None)
+    p.add_argument("--n-model", type=int, default=1)
+    p.add_argument("--config", default=None)
+    p.add_argument("--resident", action="store_true",
+                   help="device-resident corpus, --chunk steps a call (small corpora)")
+    p.add_argument("--chunk", type=int, default=200)
+    p.add_argument("--history", default=None, help="append per-interval metrics JSONL")
+    p.add_argument("--learn-alignment", dest="learn_alignment", action="store_true",
+                   default=None, help="force MAS alignment learning on")
+    p.add_argument("--no-learn-alignment", dest="learn_alignment", action="store_false",
+                   help="force the uniform-duration bootstrap (default: auto)")
+    p.add_argument("--gan", action="store_true",
+                   help="adversarial fine-tune of the vocoder (not ported yet: refused)")
+    p.add_argument("--demo-corpus", default=None, metavar="DIR",
+                   help="generate the deterministic formant corpus here (if absent) "
+                        "and train device-resident on it")
+    p.set_defaults(fn=cmd_train)
 
     p = sub.add_parser("voices", help="list registered voices")
     p.add_argument("--config", default=None)

@@ -18,7 +18,9 @@ surface (`load`, `warmup`, `embed_voice`, `embed_voice_file`, `synthesize_batch`
     speaker encoder.
 
 PyTorch runs eagerly, so there is no compile cache; `warmup` runs the warmup
-shapes once. Data-parallel serving is not ported yet (ROADMAP.md).
+shapes once. `engine.data_parallel` resolves as in the JAX engine (0 = every
+device; more than exist raises), but serving on more than one device is not
+ported yet: such a request raises (ROADMAP.md, the parallel item).
 """
 
 from __future__ import annotations
@@ -104,9 +106,11 @@ class TTSEngine:
     # ------------------------------------------------------------ loading
 
     def load(self, warmup: bool = True) -> None:
-        """Restore (`model.model_path`, a `.npz`) or seed-initialize the weights,
+        """Restore (`model.model_path`: a `.npz`, or a training root whose newest
+        step is taken) or seed-initialize the weights,
         resolve the two-stage mode, then optionally warm up."""
         t0 = time.time()
+        self.data_parallel = self._resolve_data_parallel()
         if self.mcfg.model_path:
             self.params, self.mcfg = params_mod.load_checkpoint(
                 self.mcfg.model_path, self.mcfg, self.device
@@ -130,6 +134,20 @@ class TTSEngine:
         if warmup:
             self.warmup()
         logger.info("engine loaded in %.2f s", time.time() - t0)
+
+    def _resolve_data_parallel(self) -> int:
+        """`engine.data_parallel` as the JAX engine reads it: 0 means every device
+        (`torch.cuda.device_count()` on CUDA, 1 on the CPU); more than exist raises."""
+        have = torch.cuda.device_count() if self.device.type == "cuda" else 1
+        n = self.ecfg.data_parallel or have
+        if n > have:
+            raise ValueError(f"requested {n} devices, have {have}")
+        if n > 1:
+            raise NotImplementedError(
+                f"engine.data_parallel={n}: data-parallel serving (engine/multi.py) is not "
+                "ported yet; see ROADMAP.md, Open items §1, the parallel item"
+            )
+        return n
 
     @property
     def two_stage_enabled(self) -> bool:

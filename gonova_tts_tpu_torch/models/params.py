@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import json
 import logging
+import os
 from typing import Any, Dict, Tuple
 
 import numpy as np
@@ -98,19 +99,21 @@ def replay_stress(meta: Dict[str, Any]) -> None:
         frontend.set_stress(bool(ck_stress))
 
 
-def from_numpy_tree(tree: Dict[str, Any], cfg: ModelConfig, device=None) -> TTS:
+def from_numpy_tree(tree: Dict[str, Any], cfg: ModelConfig, device=None, with_aligner: bool = False) -> TTS:
     """A JAX parameter tree (numpy leaves) → the port's `TTS` module on `device`
     (CUDA unless the caller asks for the CPU).
 
-    Every leaf of the `acoustic`, `vocoder` and `speaker` subtrees must land in a
-    parameter of the same path and shape, and every parameter must be covered;
-    other top-level subtrees (a training-time aligner) are not served and are
-    skipped. `cfg` should already carry `infer_vocos_head`'s answer."""
-    model = TTS(cfg)
+    Every leaf of the `acoustic`, `vocoder` and `speaker` subtrees (and of
+    `aligner` with `with_aligner=True`, for training) must land in a parameter of
+    the same path and shape, and every parameter must be covered; other top-level
+    subtrees are skipped (serving skips a training-time aligner). `cfg` should
+    already carry `infer_vocos_head`'s answer."""
+    model = TTS(cfg, with_aligner=with_aligner)
     state = model.state_dict()
+    served = ("acoustic", "vocoder", "speaker") + (("aligner",) if with_aligner else ())
     flat = {
         k.replace("/", "."): v
-        for k, v in flatten({k: tree[k] for k in ("acoustic", "vocoder", "speaker") if k in tree}).items()
+        for k, v in flatten({k: tree[k] for k in served if k in tree}).items()
     }
     missing = sorted(set(state) - set(flat))
     unexpected = sorted(set(flat) - set(state))
@@ -124,9 +127,23 @@ def from_numpy_tree(tree: Dict[str, Any], cfg: ModelConfig, device=None) -> TTS:
     return model.to(resolve_device(device))
 
 
+def resolve_checkpoint(path: str) -> str:
+    """A `.npz` file as given; a training root (`train/checkpoint.save_params`)
+    → its newest `step_NNNNNNNN.npz`."""
+    if os.path.isdir(path):
+        from ..train.checkpoint import latest_step_dir
+
+        newest = latest_step_dir(path)
+        if newest is None or not newest.endswith(".npz"):
+            raise ValueError(f"{path}: no step_NNNNNNNN.npz checkpoint in this training root")
+        return newest
+    return path
+
+
 def load_checkpoint(path: str, cfg: ModelConfig, device=None) -> Tuple[TTS, ModelConfig]:
-    """Restore a `.npz` checkpoint: head inference, stress replay, then the module."""
-    tree, meta = load_npz(path)
+    """Restore a `.npz` checkpoint, or the newest step of a training root: head
+    inference, stress replay, then the module."""
+    tree, meta = load_npz(resolve_checkpoint(path))
     cfg = infer_vocos_head(tree, cfg)
     replay_stress(meta)
     return from_numpy_tree(tree, cfg, device), cfg

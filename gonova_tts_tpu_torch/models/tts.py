@@ -13,7 +13,7 @@ from typing import Dict, Mapping, Optional
 import torch
 
 from ..config import ModelConfig
-from . import acoustic, speaker, vocos
+from . import acoustic, aligner, speaker, vocos
 from .layers import Tree
 
 
@@ -27,9 +27,11 @@ def _check_family(cfg: ModelConfig) -> None:
 
 class TTS(Tree):
     """`{"acoustic", "vocoder", "speaker"}` — the JAX parameter tree as one module.
-    A fresh one is seeded from `g` (defaults to seed 0)."""
+    A fresh one is seeded from `g` (defaults to seed 0). `with_aligner=True` adds
+    the MAS aligner subtree (`models/aligner.py`), which training from raw (text,
+    audio) pairs needs and serving never runs."""
 
-    def __init__(self, cfg: ModelConfig, g: Optional[torch.Generator] = None):
+    def __init__(self, cfg: ModelConfig, g: Optional[torch.Generator] = None, with_aligner: bool = False):
         super().__init__()
         _check_family(cfg)
         if g is None:
@@ -38,6 +40,8 @@ class TTS(Tree):
         self.acoustic = acoustic.AcousticModel(cfg, g)
         self.vocoder = vocos.Vocos(cfg, g)
         self.speaker = speaker.init(g, cfg)
+        if with_aligner:
+            self.aligner = aligner.init(g, cfg)
 
     def forward(self, tokens, token_mask, spk_embedding, exaggeration, dtype=torch.float32):
         return synthesize(self, tokens, token_mask, spk_embedding, exaggeration, self.cfg, dtype)

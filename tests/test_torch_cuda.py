@@ -397,3 +397,35 @@ def test_mel_spectrogram_is_one_launch_with_repeatable_bits(setup, b, t, hop):
     assert torch.equal(first, second)
     plain = mel_op.mel_spectrogram_plain(x, hop_length=hop)
     assert bool(((second - plain).abs() <= 2e-4 + 1e-4 * plain.abs()).all())
+
+
+# ------------------------------------------------------------------ the sixth slice: training
+
+
+@pytest.mark.gpu
+def test_train_step_on_the_card_launches_no_kernel_and_matches_the_cpu(setup):
+    """Two f32 steps of make_train_step (warmup 1: the second moves the weights) on
+    the card and on the CPU from one tree and one batch: the loss parts agree per
+    step within rtol 1e-3, and no kernel wrapper launches (the step runs the plain
+    layers under autograd: the kernels have no backward)."""
+    import copy
+
+    from gonova_tts_tpu_torch.train import step as tstep
+
+    dev, model, _ = setup
+    cfg = model.cfg
+    batch = tstep.synthetic_batch(cfg, batch=2, tokens=8, device="cpu")
+    runs = {}
+    for where in ("cpu", "cuda"):
+        state = tstep.init_state(copy.deepcopy(model).to(where), tstep.make_optimizer(lr=1e-3, warmup=1, decay_steps=10))
+        step = tstep.make_train_step(cfg)
+        before = ops.launch_counts()
+        parts = []
+        for _ in range(2):
+            state, metrics = step(state, {k: v.to(where) for k, v in batch.items()})
+            parts.append({k: float(v) for k, v in metrics.items()})
+        assert ops.launch_counts() == before
+        runs[where] = parts
+    for cpu, card in zip(runs["cpu"], runs["cuda"]):
+        for k in cpu:
+            np.testing.assert_allclose(card[k], cpu[k], rtol=1e-3, err_msg=k)

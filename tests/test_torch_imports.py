@@ -1,6 +1,6 @@
-"""The port stands alone: no module of gonova_tts_tpu_torch, and not chip_smoke.py,
-imports jax or anything of the JAX package gonova_tts_tpu (AST scan, so lazy
-imports inside functions count too)."""
+"""The port stands alone: no module of gonova_tts_tpu_torch, and neither
+chip_smoke.py nor parity_gpu.py, imports jax, optax, orbax or anything of the JAX
+package gonova_tts_tpu (AST scan, so lazy imports inside functions count too)."""
 
 import ast
 import pathlib
@@ -8,7 +8,7 @@ import pathlib
 import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
-FILES = sorted((ROOT / "gonova_tts_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+FILES = sorted((ROOT / "gonova_tts_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py", ROOT / "parity_gpu.py"]
 FORBIDDEN = ("jax", "jaxlib", "gonova_tts_tpu", "flax", "optax", "orbax")
 
 
@@ -38,3 +38,5 @@ def test_scan_sees_the_whole_port():
             "voice_cache.py", "voice_manager.py", "queue_manager.py", "rate_limiter.py", "synthesizer.py",
             "wavio.py", "jsonlog.py", "native.py"} <= names
     assert {"server.py", "encode.py", "ola.py", "cli.py", "registry.py"} <= names
+    assert {"losses.py", "step.py", "loop.py", "data.py", "synth_corpus.py", "checkpoint.py", "aligner.py",
+            "pitch.py", "parity_gpu.py"} <= names
