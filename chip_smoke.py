@@ -49,7 +49,8 @@ Phases; any failure exits non-zero before the final line:
      1e-2, MCD < 1.0 dB, MR-STFT < 0.3), f32 plain path vs bf16 with both stack
      kernels, on random weights (seed 0) and on the demo checkpoint; and the engine's
      bf16 two-stage audio vs its bf16 one-graph audio, graded by the same metrics.
-     Launch counts of both stacks over the phase (each must move), its wall time.
+     Launch counts set to 0 just before each line's run and read just after: each
+     line must have launched both stacks. The phase's wall time.
      A gate that fails fails the run.
   8. train: (a) three f32 steps of make_train_step at full width on the card and on
      the CPU from one seeded tree and one synthetic batch: loss parts agree within
@@ -1021,6 +1022,9 @@ def run_service(torch, np, report):
 
 
 def run_parity(torch, np, report):
+    """parity_gpu's three lines. Launch counts are set to 0 just before each line's
+    run and read just after (the demo engine's load and warm-up fall outside), and
+    every line must have launched both stack kernels."""
     import parity_gpu
     from gonova_tts_tpu_torch import ops
     from gonova_tts_tpu_torch.config import ModelConfig
@@ -1028,22 +1032,27 @@ def run_parity(torch, np, report):
 
     dev = torch.device("cuda")
     t0 = time.perf_counter()
-    ops.reset_launch_counts()
+
+    def counted(fn, weights):
+        ops.reset_launch_counts()
+        line = fn()
+        torch.cuda.synchronize()
+        counts = ops.launch_counts()
+        return {**line, "weights": weights, "launches": {k: counts.get(k, 0) for k in parity_gpu.STACKS}}
+
     model = tts.TTS(ModelConfig(), torch.Generator().manual_seed(0)).to(dev)
-    lines = [{**parity_gpu.parity(model, ModelConfig()), "weights": "random seed 0"}]
+    lines = [counted(lambda: parity_gpu.parity(model, ModelConfig()), "random seed 0")]
     model, cfg = params.load_checkpoint(parity_gpu.DEMO, ModelConfig(), dev)
-    lines.append({**parity_gpu.parity(model, cfg), "weights": "demo_ema_f16.npz"})
+    lines.append(counted(lambda: parity_gpu.parity(model, cfg), "demo_ema_f16.npz"))
     del model
     eng = parity_gpu.demo_engine(dev)
-    lines.append({**parity_gpu.engine_parity(eng), "weights": "demo_ema_f16.npz"})
-    torch.cuda.synchronize()
-    launches = ops.launch_counts()
-    checks = {
-        "parity_random_init": lines[0]["pass"],
-        "parity_demo_checkpoint": lines[1]["pass"],
-        "parity_two_stage_vs_one_graph": lines[2]["pass"],
-        "parity_launches_positive": all(launches.get(k, 0) > 0 for k in ("transformer_stack", "vocos_stack")),
-    }
+    lines.append(counted(lambda: parity_gpu.engine_parity(eng), "demo_ema_f16.npz"))
+    launches = {k: sum(line["launches"][k] for line in lines) for k in parity_gpu.STACKS}
+    names = ("parity_random_init", "parity_demo_checkpoint", "parity_two_stage_vs_one_graph")
+    checks = {}
+    for name, line in zip(names, lines):
+        checks[name] = line["pass"]
+        checks[name + "_launched_both_stacks"] = all(line["launches"][k] > 0 for k in parity_gpu.STACKS)
     report["parity"] = {"lines": lines, "launches": launches, "phase_s": time.perf_counter() - t0, "checks": checks}
     return launches, checks
 

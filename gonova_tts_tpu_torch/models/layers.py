@@ -255,24 +255,21 @@ def cached(node, key, build):
     """`build()` memoized on a parameter module under `key` (plain dicts: no memo).
 
     Kernels take weights re-laid-out (stacked over layers, cast to the compute
-    dtype); serving builds that once per (dtype, device). The memo is keyed on the
-    module's parameters and their version counters, which every in-place update
-    bumps (an optimizer step, `load_state_dict`, `copy_`), so a model that trains
-    and then serves through a kernel reads its current weights."""
+    dtype); serving builds that once per (dtype, device). Serving never writes its
+    parameters; code that updates them in place drops the memos with
+    `clear_derived` (the trainer does, after every optimizer step)."""
     if not isinstance(node, nn.Module):
         return build()
     memo = node.__dict__.setdefault("_derived", {})
-    params = list(node.parameters())
-    versions = [p._version for p in params]
-    hit = memo.get(key)
-    if (
-        hit is None
-        or len(hit[0]) != len(params)
-        or any(a is not b for a, b in zip(hit[0], params))
-        or hit[1] != versions
-    ):
-        hit = memo[key] = (params, versions, build())
-    return hit[2]
+    if key not in memo:
+        memo[key] = build()
+    return memo[key]
+
+
+def clear_derived(module: nn.Module) -> None:
+    """Drop every `cached` memo under `module`: its parameters changed in place."""
+    for m in module.modules():
+        m.__dict__.pop("_derived", None)
 
 
 def transformer_stack(

@@ -15,7 +15,7 @@ from __future__ import annotations
 import json
 import logging
 import os
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -127,12 +127,19 @@ def from_numpy_tree(tree: Dict[str, Any], cfg: ModelConfig, device=None, with_al
     return model.to(resolve_device(device))
 
 
+def latest_step_dir(root: str) -> Optional[str]:
+    """The newest `step_NNNNNNNN` entry under root (a port `.npz` or a JAX orbax
+    directory), or None."""
+    if not os.path.isdir(root):
+        return None
+    steps = sorted(d for d in os.listdir(root) if d.startswith("step_"))
+    return os.path.join(root, steps[-1]) if steps else None
+
+
 def resolve_checkpoint(path: str) -> str:
     """A `.npz` file as given; a training root (`train/checkpoint.save_params`)
     → its newest `step_NNNNNNNN.npz`."""
     if os.path.isdir(path):
-        from ..train.checkpoint import latest_step_dir
-
         newest = latest_step_dir(path)
         if newest is None or not newest.endswith(".npz"):
             raise ValueError(f"{path}: no step_NNNNNNNN.npz checkpoint in this training root")

@@ -21,7 +21,12 @@ import numpy as np
 import torch
 from torch import nn
 
-_META_KEY = "__meta__"  # npz-embedded JSON bytes
+from ..models.params import META_KEY, flatten, latest_step_dir, load_npz, resolve_checkpoint
+
+__all__ = [
+    "flat_arrays", "latest_step_dir", "load_meta", "restore_params", "restore_params_npz",
+    "save_params", "save_params_npz",
+]
 
 
 def _default_meta() -> Dict[str, Any]:
@@ -39,8 +44,6 @@ def flat_arrays(params: Any) -> Dict[str, np.ndarray]:
         params = dict(params.named_parameters())
     if isinstance(params, Mapping) and all(isinstance(v, torch.Tensor) for v in params.values()):
         return {k.replace(".", "/"): v.detach().float().cpu().numpy() for k, v in params.items()}
-    from ..models.params import flatten
-
     return {k: np.asarray(v) for k, v in flatten(params).items()}
 
 
@@ -52,7 +55,7 @@ def save_params_npz(
     metadata embedded (see load_meta)."""
     flat = {k: v.astype(dtype) for k, v in flat_arrays(params).items()}
     payload = json.dumps(meta if meta is not None else _default_meta())
-    flat[_META_KEY] = np.frombuffer(payload.encode("utf-8"), dtype=np.uint8)
+    flat[META_KEY] = np.frombuffer(payload.encode("utf-8"), dtype=np.uint8)
     np.savez_compressed(path, **flat)
     return path
 
@@ -66,38 +69,23 @@ def save_params(
     return save_params_npz(path, params, dtype="float32", meta=meta)
 
 
-def latest_step_dir(root: str) -> Optional[str]:
-    """The newest `step_NNNNNNNN` entry under root (a port `.npz` or a JAX orbax
-    directory), or None."""
-    if not os.path.isdir(root):
-        return None
-    steps = sorted(d for d in os.listdir(root) if d.startswith("step_"))
-    return os.path.join(root, steps[-1]) if steps else None
-
-
 def restore_params(path: str) -> Any:
     """Restore a nested numpy tree from a `.npz` or a training root's newest step."""
-    from ..models.params import resolve_checkpoint
-
     return restore_params_npz(resolve_checkpoint(os.path.abspath(path)))
 
 
 def restore_params_npz(path: str) -> Any:
     """The nested tree of a save_params_npz file (f32 leaves)."""
-    from ..models.params import load_npz
-
     return load_npz(path)[0]
 
 
 def load_meta(path: str) -> Dict[str, Any]:
     """Frontend metadata recorded at save time ({} for files without it). Accepts
     the same path forms as restore_params."""
-    from ..models.params import resolve_checkpoint
-
     try:
         with np.load(resolve_checkpoint(os.path.abspath(path))) as z:
-            if _META_KEY not in z.files:
+            if META_KEY not in z.files:
                 return {}
-            return json.loads(bytes(np.asarray(z[_META_KEY])).decode("utf-8"))
+            return json.loads(bytes(np.asarray(z[META_KEY])).decode("utf-8"))
     except (OSError, ValueError):
         return {}

@@ -30,7 +30,7 @@ from torch import nn
 
 from ..config import ModelConfig
 from ..device import resolve_device
-from ..models import acoustic, aligner, tts
+from ..models import acoustic, aligner, layers, tts
 from . import losses
 
 
@@ -202,7 +202,8 @@ def tts_loss_fn(
 
 def make_train_step(cfg: ModelConfig, dtype=torch.float32, learn_alignment: bool = False):
     """`train_step(state, batch) -> (state, metrics)`: one update of `state` in
-    place. Metrics stay on the device (detached); reading one synchronizes."""
+    place, after which the model's kernel-weight memos (`layers.cached`) are
+    dropped. Metrics stay on the device (detached); reading one synchronizes."""
     if cfg.acoustic_pallas or cfg.vocos_pallas:
         raise ValueError(
             "training runs the plain layers: the acoustic_pallas/vocos_pallas kernels "
@@ -216,6 +217,7 @@ def make_train_step(cfg: ModelConfig, dtype=torch.float32, learn_alignment: bool
         )
         loss.backward()
         state.opt_state.update()
+        layers.clear_derived(state.params)  # kernel-weight memos of the old parameters
         state.step += 1
         return state, {k: v.detach() for k, v in metrics.items()}
 

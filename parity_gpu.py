@@ -8,15 +8,16 @@ multi-resolution STFT loss < 0.3. The reference is the f32 plain path; the
 candidate is the bf16 path with both stack kernels on (`acoustic_pallas`,
 `vocos_pallas`), as the engine serves on the card.
 
-    python3 parity_gpu.py                   # CUDA: random init (seed 0) and the demo checkpoint
-    python3 parity_gpu.py --weights demo --engine
+    python3 parity_gpu.py                   # on CUDA
+    python3 parity_gpu.py --device cpu      # kernel wrappers run their plain versions
 
-prints one JSON line per set of weights with parity.py's keys (`metric`, `mel_mse`,
-`mcd_db`, `vocoder_mrstft`, `pass`) and the weights and device. `--engine` adds a
-line grading the engine's bf16 two-stage audio against its bf16 one-graph audio on
-the demo checkpoint, at the same texts and bucket, with the same three metrics (on
-the log-mels of the two audios). Exits 1 if any gate fails. Runs on CUDA unless
-`--device cpu` (there the kernel wrappers run their plain versions).
+prints three JSON lines with parity.py's keys (`metric`, `mel_mse`, `mcd_db`,
+`vocoder_mrstft`, `pass`), the weights, the device and each stack kernel's
+launches during the line's bf16 run: the gate on a random init (seed 0), the gate
+on the demo checkpoint, and the engine's bf16 two-stage audio graded against its
+bf16 one-graph audio on the demo checkpoint, at the same texts and bucket, with
+the same three metrics (on the log-mels of the two audios). Exits 1 if a gate
+fails or, on CUDA, a line's run launched either stack kernel no time.
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from gonova_tts_tpu_torch import ops
 from gonova_tts_tpu_torch.audio.mel import mcd, mel_mse, mel_spectrogram
 from gonova_tts_tpu_torch.config import ModelConfig
 from gonova_tts_tpu_torch.device import resolve_device
@@ -85,6 +87,17 @@ def run(model, cfg: ModelConfig, dtype, inputs):
         return ac["mel"].float(), wav.float()
 
 
+STACKS = ("transformer_stack", "vocos_stack")
+
+
+def stack_launches(fn):
+    """(fn(), {stack kernel: launches during fn()})."""
+    before = ops.launch_counts()
+    out = fn()
+    after = ops.launch_counts()
+    return out, {k: after.get(k, 0) - before.get(k, 0) for k in STACKS}
+
+
 def parity(model, cfg: ModelConfig) -> dict:
     """f32 plain path vs bf16 with both stack kernels, on `model`'s device."""
     dev = next(model.parameters()).device
@@ -92,8 +105,8 @@ def parity(model, cfg: ModelConfig) -> dict:
     plain = cfg.model_copy(update={"acoustic_pallas": False, "vocos_pallas": False})
     kernels = cfg.model_copy(update={"acoustic_pallas": True, "vocos_pallas": True})
     mel_ref, wav_ref = run(model, plain, torch.float32, inputs)
-    mel_cand, wav_cand = run(model, kernels, torch.bfloat16, inputs)
-    return gate(mel_cand, mel_ref, wav_cand, wav_ref)
+    (mel_cand, wav_cand), launches = stack_launches(lambda: run(model, kernels, torch.bfloat16, inputs))
+    return {**gate(mel_cand, mel_ref, wav_cand, wav_ref), "launches": launches}
 
 
 def engine_parity(engine) -> dict:
@@ -101,13 +114,17 @@ def engine_parity(engine) -> dict:
     zero-padded to the longest, then the gate's metrics on their log-mels and
     audio. Rows of unequal length fail the line."""
     mode = engine.ecfg.two_stage_batch
-    try:
-        engine.ecfg.two_stage_batch = False
-        one = engine.synthesize_batch(TEXTS)
-        engine.ecfg.two_stage_batch = True
-        two = engine.synthesize_batch(TEXTS)
-    finally:
-        engine.ecfg.two_stage_batch = mode
+
+    def both():
+        try:
+            engine.ecfg.two_stage_batch = False
+            one = engine.synthesize_batch(TEXTS)
+            engine.ecfg.two_stage_batch = True
+            return one, engine.synthesize_batch(TEXTS)
+        finally:
+            engine.ecfg.two_stage_batch = mode
+
+    (one, two), launches = stack_launches(both)
     same_lengths = [len(a) for a in one] == [len(b) for b in two]
     n = max(len(a) for a in one + two)
 
@@ -129,45 +146,47 @@ def engine_parity(engine) -> dict:
     out["max_abs_diff"] = float((a_two - a_one).abs().max())
     out["same_lengths"] = same_lengths
     out["pass"] = out["pass"] and same_lengths
+    out["launches"] = launches
     return out
 
 
-def demo_engine(device=None):
-    """A TTSEngine on the demo checkpoint in bf16 with both stack kernels on."""
+def demo_engine(device=None, cfg: Optional[ModelConfig] = None):
+    """A TTSEngine on the demo checkpoint in bf16 with both stack kernels on,
+    warmed up at the gate's bucket. `cfg` (default `ModelConfig()`) must fit the
+    checkpoint."""
     from gonova_tts_tpu_torch.config import Config, EngineConfig
     from gonova_tts_tpu_torch.engine import TTSEngine
 
-    cfg = Config()
-    cfg.model = ModelConfig(model_path=DEMO, compute_dtype="bfloat16", vocos_pallas=True)
-    cfg.engine = EngineConfig(acoustic_pallas=True, warmup_shapes=[[4, 64]])
-    engine = TTSEngine(cfg, device=device)
+    full = Config()
+    full.model = (cfg or ModelConfig()).model_copy(
+        update={"model_path": DEMO, "compute_dtype": "bfloat16", "vocos_pallas": True}
+    )
+    full.engine = EngineConfig(acoustic_pallas=True, warmup_shapes=[[4, BUCKET]])
+    engine = TTSEngine(full, device=device)
     engine.load(warmup=True)
     return engine
 
 
 def main(argv=None, cfg: Optional[ModelConfig] = None) -> int:
-    """`cfg` replaces `ModelConfig()` for the random-init weights (the CPU test
-    passes a small one)."""
+    """`cfg` replaces `ModelConfig()` as the models' config (the CPU test passes a
+    small one, with a checkpoint of that size in place of the demo's)."""
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--weights", choices=("random", "demo", "both"), default="both")
-    ap.add_argument("--engine", action="store_true",
-                    help="also grade the engine's bf16 two-stage vs one-graph audio (demo checkpoint)")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     args = ap.parse_args(argv)
     dev = resolve_device(args.device)
-    lines = []
-    if args.weights in ("random", "both"):
-        rcfg = cfg or ModelConfig()
-        model = tts.TTS(rcfg, torch.Generator().manual_seed(0)).to(dev)
-        lines.append({**parity(model, rcfg), "weights": "random seed 0", "device": str(dev)})
-    if args.weights in ("demo", "both"):
-        model, dcfg = params.load_checkpoint(DEMO, ModelConfig(), dev)
-        lines.append({**parity(model, dcfg), "weights": "demo_ema_f16.npz", "device": str(dev)})
-    if args.engine:
-        lines.append({**engine_parity(demo_engine(dev)), "weights": "demo_ema_f16.npz", "device": str(dev)})
+    cfg = cfg or ModelConfig()
+    weights = os.path.basename(DEMO)
+    model = tts.TTS(cfg, torch.Generator().manual_seed(0)).to(dev)
+    lines = [{**parity(model, cfg), "weights": "random seed 0"}]
+    model, dcfg = params.load_checkpoint(DEMO, cfg, dev)
+    lines.append({**parity(model, dcfg), "weights": weights})
+    del model
+    lines.append({**engine_parity(demo_engine(dev, cfg)), "weights": weights})
     for line in lines:
+        line["device"] = str(dev)
         print(json.dumps(line), flush=True)
-    return 0 if all(line["pass"] for line in lines) else 1
+    launched = dev.type != "cuda" or all(n > 0 for line in lines for n in line["launches"].values())
+    return 0 if launched and all(line["pass"] for line in lines) else 1
 
 
 if __name__ == "__main__":

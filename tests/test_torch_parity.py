@@ -1,8 +1,9 @@
 """parity_gpu.py on the CPU: its metrics equal parity.py's (the JAX package's
 mel_mse, mcd and multi_resolution_stft_loss) on the same arrays, rtol 1e-5; its
-main prints the five keys of parity.py's line at a small config; the engine line
-(two-stage vs one-graph) runs. On the CPU the kernel wrappers run their plain
-versions, so the bf16 candidate differs from the f32 reference by bf16 alone."""
+main prints its three lines with the five keys of parity.py's line at a small
+config; the engine line (two-stage vs one-graph) runs. On the CPU the kernel
+wrappers run their plain versions, so the bf16 candidate differs from the f32
+reference by bf16 alone."""
 
 import json
 
@@ -17,6 +18,8 @@ from gonova_tts_tpu.audio.mel import mel_mse as jmel_mse
 from gonova_tts_tpu.train.losses import multi_resolution_stft_loss as jmrstft
 from gonova_tts_tpu_torch.config import Config, EngineConfig, ModelConfig
 from gonova_tts_tpu_torch.engine import TTSEngine
+from gonova_tts_tpu_torch.models.tts import TTS
+from gonova_tts_tpu_torch.train.checkpoint import save_params_npz
 
 TINY = dict(
     d_model=32, n_heads=2, d_ff=64, encoder_layers=1, decoder_layers=1, speaker_dim=32,
@@ -49,14 +52,22 @@ def test_gate_metrics_equal_parity_py():
     assert worse["pass"] is False  # mel MSE 1.0 is over the 1e-2 limit
 
 
-def test_main_prints_parity_py_keys(capsys):
-    rc = parity_gpu.main(["--weights", "random", "--device", "cpu"], cfg=ModelConfig(**TINY))
+def test_main_prints_parity_py_keys(capsys, monkeypatch, tmp_path):
+    """main prints its three lines (random init, checkpoint, engine) with parity.py's
+    keys, on a small config with a checkpoint of that size in the demo's place."""
+    cfg = ModelConfig(**TINY)
+    small = str(tmp_path / "small.npz")
+    save_params_npz(small, TTS(cfg, torch.Generator().manual_seed(1)))
+    monkeypatch.setattr(parity_gpu, "DEMO", small)
+    rc = parity_gpu.main(["--device", "cpu"], cfg=cfg)
     lines = [json.loads(x) for x in capsys.readouterr().out.splitlines()]
-    assert len(lines) == 1
-    line = lines[0]
-    assert KEYS <= set(line) and line["metric"] == "parity_bf16_vs_f32" and line["device"] == "cpu"
-    assert all(np.isfinite(line[k]) for k in ("mel_mse", "mcd_db", "vocoder_mrstft"))
-    assert rc == (0 if line["pass"] else 1)
+    assert [line["metric"] for line in lines] == ["parity_bf16_vs_f32"] * 2 + ["parity_bf16_two_stage_vs_one_graph"]
+    assert [line["weights"] for line in lines] == ["random seed 0", "small.npz", "small.npz"]
+    for line in lines:
+        assert KEYS <= set(line) and line["device"] == "cpu"
+        assert all(np.isfinite(line[k]) for k in ("mel_mse", "mcd_db", "vocoder_mrstft"))
+        assert line["launches"] == {"transformer_stack": 0, "vocos_stack": 0}  # plain versions on the CPU
+    assert rc == (0 if all(line["pass"] for line in lines) else 1)
 
 
 def test_workload_is_parity_py_s():
