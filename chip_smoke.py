@@ -66,7 +66,28 @@ Phases; any failure exits non-zero before the final line:
      speaker's cloned voice, finite and not silent, both stacks launched. (d) one
      warm training step profiled: the MAS loops alone, device busy and idle share,
      host-to-device copies, the top kernels.
-  9. output: a `kernels` JSON line, the nvidia-smi line, then the `ok` JSON line.
+  9. hifigan: NovaGAN at full width (`ModelConfig(vocoder_family="hifigan")`: the demo
+     checkpoint's acoustic and speaker subtrees with a HiFi-GAN generator seeded from
+     0). f32: the generator at B=1 T=64 on the card vs the CPU, and folded vs plain on
+     the card; TTSEngine with the kernel switches on, two-stage vs one-graph within one
+     int16 step. bf16 (launch counts from 0 just before, read just after): batches
+     1/4/16 two-stage and one-graph, a stream, a cloned voice (assets/default_voice.wav):
+     `transformer_stack` must launch, `vocos_stack` must not. Then audio-s/s per batch
+     and mode, the batch-4 profile, the generator alone at B=4 T=320 in both layouts
+     and dtypes against its FLOP bound (`generator_work`), and parity_gpu's gate
+     metrics for bf16 vs f32 on this config (readings: the vocoder is random).
+ 10. gan: (a) three d/g pairs of make_gan_steps at a small config (disc_width 0.25,
+     the crop firing) on the card vs the CPU: losses within GAN_CARD_VS_CPU_RTOL, no
+     kernel launched; (b) `train(gan=True)` on the demo corpus at full width with the
+     Vocos generator and the critics at width 1.0 (resident, chunk 50, batch 8,
+     GAN_JOINT_STEPS joint steps + GAN_PAIRS pairs): GAN metrics finite, the generator
+     moved, checkpoints at the joint steps and at the end and nothing else, no kernel
+     launched; ms per pair, peak memory, the chunk means beside the JAX run's GAN lines;
+     the final checkpoint served in bf16 with both kernels (`vocos_stack` launches);
+     (c) five pairs of the full-width HiFi-GAN generator at batch 8 x 512 frames.
+ 11. output: a `kernels` JSON line (every kernel with its launches on each path,
+     `launches_hifigan_path` and `launches_gan_phase` included), the nvidia-smi line,
+     then the `ok` JSON line.
 
 Bounds (max |error| unless named):
   kernels f32: KERNEL_F32_BOUND (summation order through up to 8 layers);
@@ -83,6 +104,7 @@ Bounds (max |error| unless named):
   ConvNeXt block chained 8 times vs the stack kernel, f32: CHAIN_VS_STACK_BOUND; in
     bf16 vs eight plain blocks: KERNEL_BF16_BOUND;
   voice path: see VOICE_BOUNDS;
+  NovaGAN: see HIFIGAN_BOUNDS; GAN pairs card vs CPU: GAN_CARD_VS_CPU_RTOL (relative);
   service: WS audio vs batcher.submit of the same sentence and embedding,
     VOICE_BOUNDS["cloned_batch_vs_stream"]; wav framing vs pcm framing of the same
     text, one int16 step; an unknown voice vs the default voice, SERVICE_FALLBACK_BOUND.
@@ -1262,6 +1284,330 @@ def run_train(torch, np, report, smi):
     return train_launches, serve_launches, checks
 
 
+# ------------------------------------------------------------------ phase 9
+
+
+HIFIGAN = {"vocoder_family": "hifigan"}  # ModelConfig() fields: full width, folded layout
+HIFIGAN_BOUNDS = {
+    "vocoder_card_vs_cpu_f32": 1e-4,  # cuDNN vs the CPU's summation order, f32 through 40 convs
+    "folded_vs_plain_f32": (2e-5, 1e-5),  # (atol, rtol): the JAX package's pin for its own fold
+    "f32_two_stage_vs_one_graph": 1.01 / 32767,  # the JAX engine's pin: one int16 step
+}
+
+
+def generator_work(cfg, batch: int, t_mel: int):
+    """(FLOPs, parameter count) of one plain HiFi-GAN forward: 2 * output length *
+    k * C_in * C_out for each conv (a transposed conv: its input length)."""
+    flops, t, ch = 0, t_mel, cfg.upsample_initial_channel
+    flops += 2 * t * 7 * cfg.n_mels * ch
+    for i, (rate, kernel) in enumerate(zip(cfg.upsample_rates, cfg.upsample_kernels)):
+        c_in, c_out = ch // 2**i, ch // 2 ** (i + 1)
+        flops += 2 * t * kernel * c_in * c_out
+        t *= rate
+        flops += sum(2 * t * k * c_out * c_out * 2 * len(d) for k, d in zip(cfg.resblock_kernels, cfg.resblock_dilations))
+    flops += 2 * t * 7 * (ch // 2 ** len(cfg.upsample_rates))
+    return batch * flops
+
+
+def novagan_checkpoint(torch, tmp: str, mcfg) -> str:
+    """The demo checkpoint's acoustic and speaker subtrees with a HiFi-GAN vocoder
+    seeded from 0 (the repository ships no trained one), as one f32 .npz."""
+    from gonova_tts_tpu_torch.models import params, vocoder
+    from gonova_tts_tpu_torch.train.checkpoint import save_params_npz
+
+    tree, meta = params.load_npz(DEMO)
+    gen = vocoder.init(torch.Generator().manual_seed(0), mcfg)
+    tree = {
+        "acoustic": tree["acoustic"], "speaker": tree["speaker"],
+        "vocoder": params.unflatten({k.replace(".", "/"): v.numpy() for k, v in gen.state_dict().items()}),
+    }
+    return save_params_npz(os.path.join(tmp, "novagan_demo_seed0.npz"), tree, dtype="float32", meta=meta)
+
+
+def run_hifigan(torch, np, report, smi, dev="cuda"):
+    """Phase 9: NovaGAN served through TTSEngine at full width. Returns the kernel
+    launches of the bf16 serving run (counts set to 0 just before it) and checks."""
+    import copy
+
+    from gonova_tts_tpu_torch import ops
+    from gonova_tts_tpu_torch.config import Config, EngineConfig, ModelConfig
+    from gonova_tts_tpu_torch.engine import TTSEngine
+    from gonova_tts_tpu_torch.models import vocoder, vocoder_folded
+
+    import parity_gpu
+
+    t_phase = time.perf_counter()
+    sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)  # dev="cpu": a rehearsal
+    out, checks = {"device": smi}, {}
+    mcfg = ModelConfig(**HIFIGAN)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = novagan_checkpoint(torch, tmp, mcfg)
+
+        # f32: the generator on the card vs the CPU, and folded vs plain on the card.
+        gen_cpu = vocoder.init(torch.Generator().manual_seed(0), mcfg)
+        gen = copy.deepcopy(gen_cpu).to(dev)
+        mel = torch.as_tensor(np.random.default_rng(9).normal(-4.0, 2.0, (1, 64, mcfg.n_mels)).astype(np.float32))
+        with torch.inference_mode():
+            want = vocoder.forward(gen_cpu, mel, mcfg)
+            plain = vocoder.forward(gen, mel.to(dev), mcfg)
+            folded = vocoder_folded.forward(gen, mel.to(dev), mcfg)
+        atol, rtol = HIFIGAN_BOUNDS["folded_vs_plain_f32"]
+        card_err = float((plain.cpu() - want).abs().max())
+        fold_excess = float(((folded - plain).abs() - rtol * plain.abs()).max())
+        out["vocoder_f32"] = {"B": 1, "T": 64, "card_vs_cpu_max_abs": card_err,
+                              "folded_vs_plain_max_abs": float((folded - plain).abs().max()),
+                              "bounds": HIFIGAN_BOUNDS}
+        checks["hifigan_vocoder_card_vs_cpu"] = card_err <= HIFIGAN_BOUNDS["vocoder_card_vs_cpu_f32"]
+        checks["hifigan_folded_vs_plain"] = fold_excess <= atol
+        del gen_cpu
+
+        def engine(dtype):
+            cfg = Config()
+            cfg.model = ModelConfig(**HIFIGAN, model_path=path, compute_dtype=dtype, vocos_pallas=True)
+            cfg.engine = EngineConfig(acoustic_pallas=True, warmup_shapes=[[1, 32], [4, 64]])
+            eng = TTSEngine(cfg, device=dev)
+            eng.load(warmup=True)
+            return eng
+
+        # f32 with the kernel switches on: two-stage vs one-graph within one int16 step.
+        eng = engine("float32")
+        ops.reset_launch_counts()
+        one, two = pinned(eng, False, SENTENCES), pinned(eng, True, SENTENCES)
+        sync()
+        f32_launches = ops.launch_counts()
+        k = "f32_two_stage_vs_one_graph"
+        out[k] = max_diff(one, two)
+        checks["hifigan_" + k] = out[k] <= HIFIGAN_BOUNDS[k]
+        del eng
+
+        # bf16: the serving run (launch counts from 0, read right after).
+        eng = engine("bfloat16")
+        voice = eng.embed_voice_file(VOICE_WAV)
+        ops.reset_launch_counts()
+        served = []
+        for b in (1, 4, 16):
+            texts = [SENTENCES[i % len(SENTENCES)] for i in range(b)]
+            served += pinned(eng, True, texts) + pinned(eng, False, texts)
+        chunks = list(eng.synthesize_stream(STREAM_TEXT))
+        cloned = eng.synthesize_batch([SENTENCES[1]], speakers=[eng.embed_voice_file(VOICE_WAV)])
+        sync()
+        launches = ops.launch_counts()
+        checks["hifigan_served_finite"] = all(w.size > 0 and np.isfinite(w).all() for w in served + chunks + cloned)
+        checks["hifigan_transformer_stack_launched"] = launches.get("transformer_stack", 0) > 0
+        checks["hifigan_vocos_stack_not_launched"] = launches.get("vocos_stack", 0) == 0
+        checks["hifigan_f32_transformer_stack_launched"] = f32_launches.get("transformer_stack", 0) > 0
+        checks["hifigan_f32_vocos_stack_not_launched"] = f32_launches.get("vocos_stack", 0) == 0
+        out["main_path"] = {"launches": launches, "f32_launches": f32_launches, "stream_chunks": len(chunks),
+                            "cloned_voice_audio_s": cloned[0].size / eng.sample_rate,
+                            "voice_embedding_norm": float(np.linalg.norm(voice))}
+
+        speed = {}
+        for b in (1, 4, 16):
+            texts = [SENTENCES[i % len(SENTENCES)] for i in range(b)]
+            for mode in (True, False):
+                pinned(eng, mode, texts)
+                sync()
+                reps, t0, samples = 3, time.perf_counter(), 0
+                for _ in range(reps):
+                    samples += sum(w.size for w in pinned(eng, mode, texts))
+                dt = time.perf_counter() - t0
+                speed[f"batch{b}_{'two_stage' if mode else 'one_graph'}"] = {
+                    "audio_s_per_s": samples / eng.sample_rate / dt, "latency_ms_per_batch": dt / reps * 1e3}
+        out["speed_bf16"] = speed
+        if dev == "cuda":
+            out["profile_batch4_two_stage"] = profile(eng, torch, speed["batch4_two_stage"]["latency_ms_per_batch"])
+
+        # The generator alone at B=4, T=320: both layouts, bf16 and f32, against its bound.
+        mel = torch.as_tensor(np.random.default_rng(10).normal(-4.0, 2.0, (4, 320, mcfg.n_mels)).astype(np.float32),
+                              device=dev)
+        flops = generator_work(mcfg, 4, 320)
+        n_params = sum(p.numel() for p in gen.parameters())
+        gen_times = {}
+        for dtype in (torch.bfloat16, torch.float32):
+            # The f32 mel read once, the weights once in the compute dtype, the f32 audio written once.
+            moved = nbytes(mel) + n_params * (2 if dtype == torch.bfloat16 else 4) \
+                + 4 * 320 * vocoder.upsample_factor(mcfg) * 4
+            b_ms, b_by = bound(moved, flops, name_of(dtype))
+            for name, fn in (("plain", vocoder.forward), ("folded", vocoder_folded.forward)):
+                with torch.inference_mode():
+                    ms = cuda_ms(lambda: fn(gen, mel, mcfg, dtype), 5) if dev == "cuda" else float("nan")
+                gen_times[f"{name} {name_of(dtype)}"] = {"ms": ms, "bound_ms": b_ms, "bound_by": b_by}
+        out["generator_B4_T320"] = {"gflop_plain": flops / 1e9, "params": n_params, "times": gen_times}
+
+        # parity.py's gate metrics, bf16 vs f32, on this config (random vocoder: readings).
+        out["parity_bf16_vs_f32_random_vocoder"] = parity_gpu.parity(eng.params, eng.mcfg)
+        del eng
+    out["phase_s"] = time.perf_counter() - t_phase
+    out["checks"] = checks
+    report["hifigan"] = out
+    return launches, checks
+
+
+# ------------------------------------------------------------------ phase 10
+
+
+GAN_CARD_VS_CPU_RTOL = 1e-4
+GAN_JOINT_STEPS, GAN_PAIRS, GAN_CHUNK = 50, 100, 50
+GAN_DEMO_MODEL = {}  # ModelConfig() fields of the demo-corpus run: full width, the Vocos generator
+GAN_SMALL = dict(  # the card-vs-CPU config: the GAN path at a few layers and narrow widths
+    d_model=64, n_heads=2, d_ff=128, encoder_layers=1, decoder_layers=1, speaker_dim=32,
+    vocoder_family="hifigan", upsample_initial_channel=32, disc_width=0.25,
+)
+GAN_FULL_HIFIGAN = {"vocoder_family": "hifigan"}  # full width, disc_width 1.0
+GAN_FULL_FRAMES = 512
+
+
+def gan_batch(np, cfg, b: int, frames: int, seed: int):
+    """A batch padded as the dataset pads: log-mel at the log(1e-5) floor and zero
+    audio past each utterance (the second one is 7 frames short)."""
+    rng = np.random.default_rng(seed)
+    fm = (np.arange(frames)[None] < np.array([[frames - 7 * (i % 2)] for i in range(b)])).astype(np.float32)
+    mel = np.where(fm[..., None] > 0, rng.normal(-4.0, 2.0, (b, frames, cfg.n_mels)), np.log(1e-5))
+    audio = 0.1 * rng.normal(size=(b, frames * cfg.hop_length)) * np.repeat(fm, cfg.hop_length, axis=1)
+    return {"mel": mel.astype(np.float32), "audio": audio.astype(np.float32), "frame_mask": fm}
+
+
+def gan_states(torch, cfg, dev, lr=2e-4):
+    from gonova_tts_tpu_torch.models import layers, tts, vocoder
+    from gonova_tts_tpu_torch.train import step as tstep
+
+    model = tts.TTS(cfg, torch.Generator().manual_seed(3)).to(dev)
+    opt = tstep.make_optimizer(lr=lr, warmup=1, decay_steps=10)
+    gen = tstep.init_state(layers.group(vocoder=model.vocoder), opt)
+    critics = vocoder.discriminators_init(
+        torch.Generator().manual_seed(101), torch.Generator().manual_seed(102), cfg.disc_width).to(dev)
+    return gen, tstep.init_state(critics, opt)
+
+
+def gan_pairs(torch, np, cfg, dev, batch, n: int):
+    """n d/g pairs of make_gan_steps from seeded weights: (losses per pair, host ms
+    per pair from the second on, peak device memory GiB)."""
+    from gonova_tts_tpu_torch.train import step as tstep
+
+    gen, disc = gan_states(torch, cfg, dev)
+    d_step, g_step = tstep.make_gan_steps(cfg)
+    b = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+    if dev == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    runs, stamps = [], []
+    for _ in range(n):
+        disc, dl = d_step(disc, gen.params, b["mel"], b["audio"])
+        gen, m = g_step(gen, disc.params, b["mel"], b["audio"], b["frame_mask"])
+        runs.append({"d": float(dl), **{k: float(v) for k, v in m.items()}})  # reading synchronizes
+        stamps.append(time.perf_counter())
+    ms = (stamps[-1] - stamps[0]) / (n - 1) * 1e3 if n > 1 else float("nan")
+    peak = torch.cuda.max_memory_allocated() / 2**30 if dev == "cuda" else float("nan")
+    return runs, ms, peak
+
+
+def run_gan(torch, np, report, smi, dev="cuda"):
+    """Phase 10: the adversarial phase on the card. Returns the kernel launches
+    during the GAN training run and checks."""
+    from gonova_tts_tpu_torch import ops
+    from gonova_tts_tpu_torch.config import Config, EngineConfig, ModelConfig
+    from gonova_tts_tpu_torch.engine import TTSEngine
+    from gonova_tts_tpu_torch.models import params
+    from gonova_tts_tpu_torch.train.loop import train
+    from gonova_tts_tpu_torch.train.synth_corpus import DEFAULT_SENTENCES, generate_corpus
+
+    t_phase = time.perf_counter()
+    sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)  # dev="cpu": a rehearsal
+    out, checks = {"device": smi}, {}
+
+    # (a) three pairs on the card vs the CPU, f32, a small config, the crop firing.
+    small = ModelConfig(**GAN_SMALL, device="cpu")
+    batch = gan_batch(np, small, 2, 40, seed=4)
+    ops.reset_launch_counts()
+    cpu_runs = gan_pairs(torch, np, small, "cpu", batch, 3)[0]
+    card_runs = gan_pairs(torch, np, small, dev, batch, 3)[0]
+    pair_launches = ops.launch_counts()
+    worst = max(abs(a[k] - b[k]) / max(abs(b[k]), 1e-12) for a, b in zip(card_runs, cpu_runs) for k in b)
+    out["card_vs_cpu"] = {"config": GAN_SMALL, "batch": "2 x 40 frames (crop fires)", "cpu": cpu_runs,
+                          "card": card_runs, "worst_rel_diff": worst, "bound": GAN_CARD_VS_CPU_RTOL}
+    checks["gan_card_vs_cpu"] = worst <= GAN_CARD_VS_CPU_RTOL
+    checks["gan_pairs_launch_no_kernel"] = not any(pair_launches.values())
+
+    # (b) the demo corpus, the Vocos generator at full width: joint steps, then GAN pairs.
+    with tempfile.TemporaryDirectory() as tmp:
+        generate_corpus(tmp, variable=True, holdout=2)
+        hist, ckpt = os.path.join(tmp, "history.jsonl"), os.path.join(tmp, "ckpt")
+        cfg = Config()
+        cfg.model = ModelConfig(**GAN_DEMO_MODEL)
+        logs = LogRecords("gonova.train")
+        if dev == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        try:
+            final = train(
+                cfg, manifest=os.path.join(tmp, "manifest_train.txt"), resident=True, chunk=GAN_CHUNK,
+                steps=GAN_JOINT_STEPS, warmup=50, batch_size=8, lr=2e-4, checkpoint_dir=ckpt,
+                history_path=hist, gan=True, gan_steps=GAN_PAIRS, device=dev,
+            )
+        finally:
+            logs.close()
+        sync()
+        wall = time.perf_counter() - t0
+        gan_launches = ops.launch_counts()
+        gan_lines = [x for x in map(json.loads, open(hist)) if x.get("phase") == "gan"]
+        # Steady state: from the first logged chunk (it pays the first-call costs) to the last.
+        stamps = sorted((f["step"], f["elapsed_s"]) for e, f in logs.events if e == "gan_step")
+        steady = (stamps[-1][1] - stamps[0][1]) / (stamps[-1][0] - stamps[0][0]) * 1e3 if len(stamps) > 1 else None
+        with open(JAX_HISTORY) as f:
+            jax_gan = [x for x in map(json.loads, f) if x.get("phase") == "gan"]
+        names = sorted(os.listdir(ckpt))
+        want = [f"step_{GAN_JOINT_STEPS:08d}.npz", f"step_{GAN_JOINT_STEPS + GAN_PAIRS:08d}.npz"]
+        base, _ = params.load_npz(os.path.join(ckpt, want[0]))
+        tuned, _ = params.load_npz(os.path.join(ckpt, want[1]))
+        fb, ft = params.flatten(base), params.flatten(tuned)
+        moved = max(float(np.abs(ft[k] - fb[k]).max()) for k in ft if k.startswith("vocoder/"))
+        out["demo_corpus_vocos"] = {
+            "recipe": f"demo corpus, ModelConfig() full width f32, disc_width 1.0, resident, chunk {GAN_CHUNK}, batch 8: "
+                      f"{GAN_JOINT_STEPS} joint steps (lr 2e-4, warmup 50) + {GAN_PAIRS} GAN pairs (gan_lr 2e-4), "
+                      "cut from the TRAIN_EVAL.md recipe's 6000 + 2000",
+            "train_wall_s": wall, "gan_ms_per_pair_steady": steady,
+            "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30 if dev == "cuda" else None,
+            "gan_lines_port": gan_lines, "gan_lines_jax_package_run_r3_tpu": jax_gan[:2],
+            "gan_lines_note": "loss values only (chunk means; the JAX run used chunk 200 on a TPU v5e): not a speed comparison",
+            "final": final, "checkpoints": names, "vocoder_max_abs_move": moved,
+            "launches_during_training": gan_launches,
+        }
+        checks["gan_metrics_finite"] = bool(gan_lines) and all(
+            np.isfinite(v) for x in gan_lines for k, v in x.items() if k != "phase") and all(
+            np.isfinite(v) for k, v in final.items() if k.startswith("gan_"))
+        checks["gan_generator_moved"] = moved > 0
+        checks["gan_checkpoints_at_steps_and_end"] = names == want
+        checks["gan_launches_no_kernel"] = not any(gan_launches.values())
+
+        serve = Config()
+        serve.model = ModelConfig(**GAN_DEMO_MODEL, model_path=ckpt, compute_dtype="bfloat16", vocos_pallas=True)
+        serve.engine = EngineConfig(acoustic_pallas=True, warmup_shapes=[[1, 32]])
+        eng = TTSEngine(serve, device=dev)
+        eng.load(warmup=True)
+        ops.reset_launch_counts()
+        wav = eng.synthesize_batch([DEFAULT_SENTENCES[-1]])[0]
+        sync()
+        serve_launches = ops.launch_counts()
+        out["gan_checkpoint_serving"] = {"audio_s": wav.size / eng.sample_rate, "launches": serve_launches,
+                                         "rms": float(np.sqrt(np.mean(wav**2))) if wav.size else 0.0}
+        checks["gan_checkpoint_serves_finite"] = bool(wav.size and np.isfinite(wav).all())
+        checks["gan_checkpoint_launches_vocos_stack"] = serve_launches.get("vocos_stack", 0) > 0
+        del eng
+
+    # (c) the HiFi-GAN generator at full width: five pairs, batch 8 x 512 frames.
+    full = ModelConfig(**GAN_FULL_HIFIGAN)
+    ops.reset_launch_counts()
+    runs, ms, peak = gan_pairs(torch, np, full, dev, gan_batch(np, full, 8, GAN_FULL_FRAMES, seed=5), 5)
+    out["hifigan_full_width"] = {"batch": f"8 x {GAN_FULL_FRAMES} frames, f32, folded layout", "pairs": runs,
+                                 "ms_per_pair": ms, "max_memory_allocated_gib": peak,
+                                 "launches": ops.launch_counts()}
+    checks["gan_hifigan_full_width_finite"] = all(np.isfinite(v) for r in runs for v in r.values())
+    out["phase_s"] = time.perf_counter() - t_phase
+    out["checks"] = checks
+    report["gan"] = out
+    return gan_launches, checks
+
+
 def main() -> None:
     try:
         import numpy as np
@@ -1316,6 +1662,10 @@ def main() -> None:
     print("parity: " + json.dumps(report["parity"]), flush=True)
     train_launches, trained_serve_launches, train_checks = run_train(torch, np, report, smi)
     print("train: " + json.dumps(report["train"]), flush=True)
+    hifigan_launches, hifigan_checks = run_hifigan(torch, np, report, smi)
+    print("hifigan: " + json.dumps(report["hifigan"]), flush=True)
+    gan_launches, gan_checks = run_gan(torch, np, report, smi)
+    print("gan: " + json.dumps(report["gan"]), flush=True)
     mel_voice = next(c for c in mel_cs if c["case"] == "voice B=1 T=239872")
     print("mel kernel at the voice path's shape: " + json.dumps(
         {k: mel_voice[k] for k in ("ms", "device_ms", "plain_ms", "matmul_ms", "bound_ms", "gflop")}), flush=True)
@@ -1331,7 +1681,9 @@ def main() -> None:
             "ms": rep["ms"], "plain_ms": rep["plain_ms"], "bound_ms": rep["bound_ms"],
             "bound_by": rep["bound_by"], "library_ms": None,
             **{k: rep[k] for k in ("device_ms", "matmul_ms") if k in rep},
-            "at": f"{main_case} {dtype}", **extra, "cases": cases,
+            "at": f"{main_case} {dtype}", **extra,
+            "launches_hifigan_path": hifigan_launches.get(name, 0), "launches_gan_phase": gan_launches.get(name, 0),
+            "cases": cases,
         }
 
     kernels = [
@@ -1362,7 +1714,7 @@ def main() -> None:
     bad = [f"{c['case']} {c['dtype']}" for c in gm_cases + ts_cases + vs_cases + mel_cs + cb_cases + [chain, chain_bf16]
            if not c["ok"]]
     bad += [k for k, v in {**kernel_checks, **checks, **voice_checks, **service_checks, **parity_checks,
-                           **train_checks}.items() if not v]
+                           **train_checks, **hifigan_checks, **gan_checks}.items() if not v]
     bad += [f"{k['name']} never launched on its path" for k in kernels if k["launches"] <= 0]
     if bad:
         print(json.dumps({"kernels": kernels}), flush=True)

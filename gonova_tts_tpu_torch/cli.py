@@ -6,7 +6,7 @@ not ported yet.
 
     gonova-tts-torch serve [--port 8002]          # or python -m gonova_tts_tpu_torch.cli
     gonova-tts-torch synth "Hello." -o hello.wav [--voice-wav ref.wav]
-    gonova-tts-torch train --demo-corpus corpus_r3/ --checkpoint-dir ckpts/ --steps 200
+    gonova-tts-torch train --demo-corpus corpus_r3/ --checkpoint-dir ckpts/ --steps 200 [--gan]
 """
 
 from __future__ import annotations
@@ -180,7 +180,7 @@ def main(argv=None) -> int:
     p.add_argument("--no-learn-alignment", dest="learn_alignment", action="store_false",
                    help="force the uniform-duration bootstrap (default: auto)")
     p.add_argument("--gan", action="store_true",
-                   help="adversarial fine-tune of the vocoder (not ported yet: refused)")
+                   help="adversarial fine-tune of the vocoder (HiFi-GAN objective)")
     p.add_argument("--demo-corpus", default=None, metavar="DIR",
                    help="generate the deterministic formant corpus here (if absent) "
                         "and train device-resident on it")

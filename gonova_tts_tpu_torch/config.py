@@ -118,11 +118,11 @@ class ModelConfig(_SectionModel):
     resblock_dilations: List[List[int]] = Field(
         default_factory=lambda: [[1, 3, 5], [1, 3, 5], [1, 3, 5]]
     )
-    # Lane-folded HiFi-GAN execution (models/vocoder_folded.py): reformulates the
-    # narrow-channel MRF/upsample convs into 128-lane folded convs (numerically
-    # identical; see PERF.md "HiFi-GAN family on-chip diagnosis"). Pure XLA and
-    # differentiable, so it serves and trains. Falls back to the plain layout
-    # per-stage when shapes don't divide.
+    # Lane-folded HiFi-GAN execution (models/vocoder_folded.py): the narrow-channel
+    # MRF/upsample convs as 128-lane folded convs, the layout the JAX package shaped
+    # for the TPU (numerically identical). Plain convs and differentiable, so it
+    # serves and trains. Falls back to the plain layout per stage when shapes
+    # don't divide.
     hifigan_folded: bool = True
 
     compute_dtype: str = "bfloat16"  # engine compute dtype on TPU; f32 on CPU tests

@@ -13,6 +13,9 @@ surface (`load`, `warmup`, `embed_voice`, `embed_voice_file`, `synthesize_batch`
   * PCM16 transfer: the device packs `clip(wav * 32767, ±32767)` with a
     truncating int16 cast, the host unpacks `/ 32768`;
   * streaming by context-padded vocoder windows that reproduce the one-shot audio;
+  * either vocoder family (`model.vocoder_family`: NovaVocos, or the HiFi-GAN
+    generator, which no kernel serves: `vocos_pallas` does not apply to it, while
+    `acoustic_pallas` still runs both acoustic stacks through the kernel);
   * voice embedding: reference audio → 24 kHz → a fixed 10 s zero-padded analysis
     buffer → log-mel (the fused kernel on CUDA under `engine.mel_pallas`) →
     speaker encoder.
@@ -219,6 +222,8 @@ class TTSEngine:
                 logger.info("warmup batch %d bucket %d: %.2f s", batch, bucket, time.time() - t0)
             stride = self.ecfg.stream_chunk_frames
             ctx = min(self.ecfg.stream_context_frames, stride)
+            # The JAX engine's rule, kept as it is: it reads vocos_layers whatever
+            # the vocoder family.
             rf_exact = 3 * (self.mcfg.vocos_layers + 1) + 2
             if ctx < rf_exact:
                 logger.warning(

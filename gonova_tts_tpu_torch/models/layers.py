@@ -60,11 +60,15 @@ def dense_init(g: torch.Generator, in_dim: int, out_dim: int, scale: Optional[fl
 
 
 def conv1d_init(
-    g: torch.Generator, in_ch: int, out_ch: int, kernel: int, scale: Optional[float] = None
+    g: torch.Generator, in_ch: int, out_ch: int, kernel: int, scale: Optional[float] = None,
+    groups: int = 1,
 ) -> Tree:
+    """Weight [kernel, in_ch // groups, out_ch] and bias [out_ch]."""
+    if in_ch % groups or out_ch % groups:
+        raise ValueError(f"groups={groups} must divide in_ch={in_ch} and out_ch={out_ch}")
     if scale is None:
-        scale = math.sqrt(2.0 / (kernel * in_ch + out_ch))
-    return leaf(w=_normal(g, (kernel, in_ch, out_ch), scale), b=torch.zeros(out_ch))
+        scale = math.sqrt(2.0 / (kernel * in_ch // groups + out_ch))
+    return leaf(w=_normal(g, (kernel, in_ch // groups, out_ch), scale), b=torch.zeros(out_ch))
 
 
 def layernorm_init(dim: int) -> Tree:
@@ -95,26 +99,49 @@ def layernorm(p: Mapping, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
 
 
 def conv1d(
-    p: Mapping, x: torch.Tensor, stride: int = 1, dtype=torch.float32, groups: int = 1
+    p: Mapping, x: torch.Tensor, stride: int = 1, dtype=torch.float32, groups: int = 1,
+    dilation: int = 1,
 ) -> torch.Tensor:
     """SAME conv. x: [B, T, C_in] → [B, ceil(T / stride), C_out]; weight
     [k, C_in//groups, C_out].
 
-    SAME padding is the JAX/XLA rule: total = max((ceil(T / stride) - 1) * stride
-    + k - T, 0), the smaller half on the left. For stride 1 and an odd kernel that
-    is (k - 1) / 2 each side; for stride 2 it depends on T's parity (k=5: (1, 2)
-    for even T, (2, 2) for odd), so the pad is explicit."""
+    SAME padding is the JAX/XLA rule over the dilated kernel k_eff = (k - 1) *
+    dilation + 1: total = max((ceil(T / stride) - 1) * stride + k_eff - T, 0), the
+    smaller half on the left. For stride 1 that is k_eff - 1 (an even kernel at
+    dilation 3 pads (k-1)*3 // 2 on the left, not (k//2 - 1) * 3); for stride 2 it
+    depends on T's parity (k=5: (1, 2) for even T, (2, 2) for odd), so the pad is
+    explicit."""
     k = p["w"].shape[0]
+    k_eff = (k - 1) * dilation + 1
     t = x.shape[1]
-    total = max((-(-t // stride) - 1) * stride + k - t, 0)
+    total = max((-(-t // stride) - 1) * stride + k_eff - t, 0)
     lo = total // 2
     w = p["w"].to(dtype).permute(2, 1, 0)  # [C_out, C_in/groups, k]
     xt = x.to(dtype).transpose(1, 2)
     if total == 2 * lo:  # symmetric: the conv pads, no copy
-        y = F.conv1d(xt, w, stride=stride, padding=lo, groups=groups)
+        y = F.conv1d(xt, w, stride=stride, padding=lo, groups=groups, dilation=dilation)
     else:
-        y = F.conv1d(F.pad(xt, (lo, total - lo)), w, stride=stride, groups=groups)
+        y = F.conv1d(F.pad(xt, (lo, total - lo)), w, stride=stride, groups=groups, dilation=dilation)
     return y.transpose(1, 2) + p["b"].to(dtype)
+
+
+def conv1d_transpose(p: Mapping, x: torch.Tensor, stride: int, dtype=torch.float32) -> torch.Tensor:
+    """Transposed conv, output length exactly T * stride (the HiFi-GAN upsampler).
+
+    The JAX package's `lax.conv_transpose` (no `transpose_kernel`) zero-stuffs x,
+    pads k - 1 - p with p = (k - stride) // 2 and correlates with the kernel as
+    stored. `F.conv_transpose1d` correlates with the kernel reversed (it is the
+    adjoint of a correlation), so the taps are flipped here; without the flip the
+    result is silently another function. The bias is added after the slice."""
+    kernel = p["w"].shape[0]
+    pad = (kernel - stride) // 2
+    w = p["w"].to(dtype).flip(0).permute(1, 2, 0)  # [C_in, C_out, k], taps reversed
+    y = F.conv_transpose1d(x.to(dtype).transpose(1, 2), w, stride=stride, padding=pad)
+    return y[:, :, : x.shape[1] * stride].transpose(1, 2) + p["b"].to(dtype)
+
+
+def leaky_relu(x: torch.Tensor, slope: float = 0.1) -> torch.Tensor:
+    return torch.where(x >= 0, x, x * slope)
 
 
 def sinusoidal_positions(length: int, dim: int, dtype=np.float32) -> np.ndarray:

@@ -37,6 +37,14 @@ def load_npz(path: str) -> Tuple[Dict[str, Any], Dict[str, Any]]:
             json.loads(bytes(np.asarray(z[META_KEY])).decode("utf-8"))
             if META_KEY in z.files else {}
         )
+    try:
+        return unflatten(flat), meta
+    except ValueError as e:
+        raise ValueError(f"{path}: {e}") from None
+
+
+def unflatten(flat: Dict[str, Any]) -> Dict[str, Any]:
+    """'/'-joined leaf paths → the nested tree; all-digit levels become lists."""
     root: dict = {}
     for key, leaf in flat.items():
         node = root
@@ -52,11 +60,11 @@ def load_npz(path: str) -> Tuple[Dict[str, Any], Dict[str, Any]]:
         if out and all(k.isdigit() for k in out):
             idx = sorted(int(k) for k in out)
             if idx != list(range(len(out))):
-                raise ValueError(f"{path}: non-contiguous list indices {idx}")
+                raise ValueError(f"non-contiguous list indices {idx}")
             return [out[str(i)] for i in idx]
         return out
 
-    return listify(root), meta
+    return listify(root)
 
 
 def flatten(tree, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -75,7 +83,10 @@ def flatten(tree, prefix: str = "") -> Dict[str, np.ndarray]:
 
 def infer_vocos_head(tree: Dict[str, Any], cfg: ModelConfig) -> ModelConfig:
     """The STFT-head flavour is encoded in the head width (2*bins polar, 3*bins
-    cartesian); a checkpoint serves with the head it was trained with."""
+    cartesian); a checkpoint serves with the head it was trained with. Other
+    families have no head: their config is returned as given."""
+    if cfg.vocoder_family != "vocos":
+        return cfg
     try:
         head_w = int(np.shape(tree["vocoder"]["head"]["w"])[-1])
     except (KeyError, TypeError):
@@ -99,22 +110,11 @@ def replay_stress(meta: Dict[str, Any]) -> None:
         frontend.set_stress(bool(ck_stress))
 
 
-def from_numpy_tree(tree: Dict[str, Any], cfg: ModelConfig, device=None, with_aligner: bool = False) -> TTS:
-    """A JAX parameter tree (numpy leaves) → the port's `TTS` module on `device`
-    (CUDA unless the caller asks for the CPU).
-
-    Every leaf of the `acoustic`, `vocoder` and `speaker` subtrees (and of
-    `aligner` with `with_aligner=True`, for training) must land in a parameter of
-    the same path and shape, and every parameter must be covered; other top-level
-    subtrees are skipped (serving skips a training-time aligner). `cfg` should
-    already carry `infer_vocos_head`'s answer."""
-    model = TTS(cfg, with_aligner=with_aligner)
-    state = model.state_dict()
-    served = ("acoustic", "vocoder", "speaker") + (("aligner",) if with_aligner else ())
-    flat = {
-        k.replace("/", "."): v
-        for k, v in flatten({k: tree[k] for k in served if k in tree}).items()
-    }
+def _load_strict(module: torch.nn.Module, tree: Dict[str, Any], device) -> torch.nn.Module:
+    """Copy a numpy tree into `module`: every leaf must land in a parameter of the
+    same path and shape, and every parameter must be covered."""
+    state = module.state_dict()
+    flat = {k.replace("/", "."): v for k, v in flatten(tree).items()}
     missing = sorted(set(state) - set(flat))
     unexpected = sorted(set(flat) - set(state))
     wrong = sorted(k for k in set(flat) & set(state) if tuple(flat[k].shape) != tuple(state[k].shape))
@@ -123,8 +123,32 @@ def from_numpy_tree(tree: Dict[str, Any], cfg: ModelConfig, device=None, with_al
             f"parameter tree does not fit the model: missing {missing[:5]}, "
             f"unexpected {unexpected[:5]}, shape mismatch {wrong[:5]}"
         )
-    model.load_state_dict({k: torch.from_numpy(np.array(v, np.float32)) for k, v in flat.items()})
-    return model.to(resolve_device(device))
+    module.load_state_dict({k: torch.from_numpy(np.array(v, np.float32)) for k, v in flat.items()})
+    return module.to(resolve_device(device))
+
+
+def from_numpy_tree(tree: Dict[str, Any], cfg: ModelConfig, device=None, with_aligner: bool = False) -> TTS:
+    """A JAX parameter tree (numpy leaves) → the port's `TTS` module on `device`
+    (CUDA unless the caller asks for the CPU).
+
+    Every leaf of the `acoustic`, `vocoder` and `speaker` subtrees (and of
+    `aligner` with `with_aligner=True`, for training) must land in a parameter of
+    the same path and shape, and every parameter must be covered; other top-level
+    subtrees are skipped (serving skips a training-time aligner). The vocoder is the
+    family `cfg.vocoder_family` names (a HiFi-GAN tree nests lists:
+    `vocoder/mrfs/i/j/convs1/k/w`). `cfg` should already carry
+    `infer_vocos_head`'s answer."""
+    served = ("acoustic", "vocoder", "speaker") + (("aligner",) if with_aligner else ())
+    return _load_strict(TTS(cfg, with_aligner=with_aligner), {k: tree[k] for k in served if k in tree}, device)
+
+
+def discriminators_from_numpy(tree: Dict[str, Any], width: float, device=None) -> torch.nn.Module:
+    """The JAX package's `{"mpd": mpd_init(...), "msd": msd_init(...)}` tree at
+    `disc_width` `width` → the port's discriminators, strictly as `from_numpy_tree`."""
+    from .vocoder import discriminators_init
+
+    g = torch.Generator().manual_seed(0)
+    return _load_strict(discriminators_init(g, g, width), {k: tree[k] for k in ("mpd", "msd")}, device)
 
 
 def latest_step_dir(root: str) -> Optional[str]:
@@ -148,8 +172,9 @@ def resolve_checkpoint(path: str) -> str:
 
 
 def load_checkpoint(path: str, cfg: ModelConfig, device=None) -> Tuple[TTS, ModelConfig]:
-    """Restore a `.npz` checkpoint, or the newest step of a training root: head
-    inference, stress replay, then the module."""
+    """Restore a `.npz` checkpoint, or the newest step of a training root, of the
+    family `cfg.vocoder_family` names: head inference, stress replay, then the
+    module."""
     tree, meta = load_npz(resolve_checkpoint(path))
     cfg = infer_vocos_head(tree, cfg)
     replay_stress(meta)

@@ -3,7 +3,8 @@
 The port's counterpart of `gonova_tts_tpu/models/registry.py`, over the port's own
 modules. `init(g, cfg)` builds a family's parameters from a `torch.Generator`;
 `forward` is the same function the JAX family names. The HiFi-GAN family
-(`novagan`) is not ported yet, so `get("novagan")` raises like any unknown name.
+(`novagan`) routes its forward through `tts.hifigan_forward_fn`, the rule the
+pipeline uses, so `hifigan_folded` picks the layout on both call paths.
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ from typing import Callable, Dict
 import torch
 
 from ..config import ModelConfig
-from . import acoustic, speaker, tts, vocos
+from . import acoustic, speaker, tts, vocoder, vocos
 
 
 @dataclass(frozen=True)
@@ -47,8 +48,8 @@ def _acoustic_init(g: torch.Generator, cfg: ModelConfig) -> acoustic.AcousticMod
     return acoustic.AcousticModel(cfg, g)
 
 
-def _vocos_init(g: torch.Generator, cfg: ModelConfig) -> vocos.Vocos:
-    return vocos.Vocos(cfg, g)
+def _novagan_forward(params, mel, cfg: ModelConfig, dtype=torch.float32):
+    return tts.hifigan_forward_fn(cfg)(params, mel, cfg, dtype)
 
 
 def _tts_init(g: torch.Generator, cfg: ModelConfig) -> tts.TTS:
@@ -66,10 +67,19 @@ register(
 )
 register(
     ModelFamily(
+        name="novagan",
+        kind="vocoder",
+        description="HiFi-GAN-class generator (mel → 24 kHz waveform; lane-folded by default)",
+        init=vocoder.init,
+        forward=_novagan_forward,
+    )
+)
+register(
+    ModelFamily(
         name="novavocos",
         kind="vocoder",
         description="iSTFT-head frame-rate vocoder (Vocos-class, the serving vocoder)",
-        init=_vocos_init,
+        init=vocos.init,
         forward=vocos.forward,
     )
 )

@@ -67,6 +67,10 @@ class Vocos(Tree):
         return forward(self, mel, self.cfg, dtype)
 
 
+def init(g: torch.Generator, cfg: ModelConfig) -> Vocos:
+    return Vocos(cfg, g)
+
+
 def forward(params: Mapping, mel: torch.Tensor, cfg: ModelConfig, dtype=torch.float32) -> torch.Tensor:
     """mel [B, T, n_mels] → waveform [B, T * hop] (f32)."""
     n_fft, hop = cfg.n_fft, cfg.hop_length

@@ -1,12 +1,13 @@
 """The training loop: dataset → train step → EMA checkpoints + metric logs.
 
-Counterpart of `gonova_tts_tpu/train/loop.py` for one device. Entry points:
+Counterpart of `gonova_tts_tpu/train/loop.py` for one device: the joint phase and,
+with `gan=True`, the adversarial vocoder phase after it. Entry points:
 `gonova-tts-torch train` (cli.py) or `python -m gonova_tts_tpu_torch.train.loop`.
 It runs on CUDA unless the caller passes `device="cpu"`.
 
-Not ported yet, and refused rather than dropped (ROADMAP.md, Open items §1): the
-adversarial phase (`gan=True`, the HiFi-GAN item) and sharded training
-(`n_data > 1`, `n_model > 1`, a multi-process launch: the parallel item).
+Not ported yet, and refused rather than dropped (ROADMAP.md, Open items §1):
+sharded training (`n_data > 1`, `n_model > 1`, a multi-process launch: the
+parallel item).
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ import torch
 
 from ..config import Config, load_config
 from ..device import resolve_device
-from ..models import tts
+from ..models import layers, tts, vocoder
 from ..utils import get_logger
 from . import step as tstep
 from .checkpoint import save_params
@@ -64,12 +65,7 @@ def make_speaker_fn(params, mcfg):
     return speaker_fn
 
 
-def _refuse_unported(gan: bool, n_data: Optional[int], n_model: int) -> None:
-    if gan:
-        raise NotImplementedError(
-            "gan=True: the adversarial vocoder phase is not ported yet "
-            "(ROADMAP.md, Open items §1, the HiFi-GAN family and GAN phase item)"
-        )
+def _refuse_unported(n_data: Optional[int], n_model: int) -> None:
     multi_process = bool(os.environ.get("TTS_COORDINATOR")) or int(os.environ.get("WORLD_SIZE", "1")) > 1
     if (n_data or 0) > 1 or n_model > 1 or multi_process:
         raise NotImplementedError(
@@ -108,9 +104,17 @@ def train(
     appends one JSON line of metrics per logging point. `learn_alignment` None =
     auto: learned in the step (MAS aligner) when the manifest has no duration
     column. Checkpoints are the zero-seeded, debiased EMA without the aligner,
-    `checkpoint_dir/step_NNNNNNNN.npz` in f32. `gan_steps` and `gan_lr` belong to
-    the unported adversarial phase. `device` defaults to `config.model.device`."""
-    _refuse_unported(gan, n_data, n_model)
+    `checkpoint_dir/step_NNNNNNNN.npz` in f32.
+
+    `gan=True` (needs a manifest) appends the adversarial vocoder phase (HiFi-GAN
+    objective: MPD and MSD critics, LSGAN + feature matching + 45 x mel L1) for
+    `gan_steps` (default `steps`) d/g pairs at `gan_lr`: the joint EMA is saved at
+    `steps` first (the baseline the phase is graded against), only the vocoder
+    trains, and its debiased EMA replaces the vocoder in the checkpoint at
+    `steps + gan_steps`. `device` defaults to `config.model.device`."""
+    _refuse_unported(n_data, n_model)
+    if gan and not manifest:
+        raise ValueError("adversarial training needs a manifest corpus")
     config = config or load_config()
     dev = resolve_device(device if device is not None else config.model.device)
     # Training runs the plain layers: the kernels have no backward.
@@ -189,10 +193,9 @@ def train(
             history.write(json.dumps({"step": step_no, **vals}) + "\n")
             history.flush()
 
-    def checkpoint(ema, n_updates):
-        snap = tstep.ema_debias(ema, ema_decay, n_updates)
+    def save(snap, n_updates, kind="ema"):
         path = save_params(checkpoint_dir, _serve_params(snap), step=n_updates)
-        logger.info("checkpoint_saved", path=path, kind="ema")
+        logger.info("checkpoint_saved", path=path, kind=kind)
 
     try:
         metrics = {}
@@ -220,7 +223,7 @@ def train(
                 done += chunk
                 log_point(done, metrics, t0)
                 if checkpoint_dir and done % checkpoint_every < chunk and done < steps:
-                    checkpoint(ema, done)
+                    save(tstep.ema_debias(ema, ema_decay, done), done)
         else:
             step_fn = tstep.make_train_step(mcfg, learn_alignment=learn_alignment)
             ema = tstep.ema_init_zeros(state.params)
@@ -234,13 +237,84 @@ def train(
                 if (i + 1) % 50 == 0 or i == 0:
                     log_point(i + 1, metrics, t0)
                 if checkpoint_dir and (i + 1) % checkpoint_every == 0:
-                    checkpoint(ema, i + 1)
+                    save(tstep.ema_debias(ema, ema_decay, i + 1), i + 1)
+        # From here on the joint EMA is read (baseline save, GAN merge, final
+        # save): its bias-corrected form, once.
+        ema = tstep.ema_debias(ema, ema_decay, steps)
+        metrics = {k: float(v) for k, v in metrics.items()}
+        n_gan = 0
+        if gan:
+            n_gan = gan_steps or steps
+            if resident and n_gan % chunk != 0:
+                n_gan = ((n_gan + chunk - 1) // chunk) * chunk
+            if checkpoint_dir:
+                # The joint-phase EMA is the L1-only baseline the GAN result is
+                # graded against; persist it before the vocoder diverges.
+                save(ema, steps, kind="ema_pre_gan")
+            gm = _gan_phase(
+                state, mcfg, n_gan, gan_lr, seed, ema_decay, chunk,
+                epoch_batches if resident else None, batches, dev, history, ema,
+            )
+            metrics.update({f"gan_{k}": float(v) for k, v in gm.items()})
         if checkpoint_dir:
-            checkpoint(ema, steps)
+            save(ema, steps + n_gan)
     finally:
         if history:
             history.close()
-    return {k: float(v) for k, v in metrics.items()}
+    return metrics
+
+
+def _gan_phase(state, mcfg, n_gan, gan_lr, seed, ema_decay, chunk, epoch_batches, batches, dev, history, ema):
+    """`n_gan` discriminator/generator step pairs on the trained vocoder; its
+    debiased EMA replaces `ema`'s vocoder entries in place. Resident when
+    `epoch_batches` is given (`chunk` pairs a call), else per step from `batches()`.
+    Returns the last logged metrics (chunk means when resident)."""
+    opt = dict(lr=gan_lr, warmup=min(200, max(n_gan // 10, 1)), decay_steps=max(n_gan, 2))
+    # The generator is the trained vocoder subtree only: the acoustic and speaker
+    # weights get no adversarial gradient, and AdamW's decay would erode them.
+    gen_state = tstep.init_state(layers.group(vocoder=state.params.vocoder), tstep.make_optimizer(**opt))
+    critics = vocoder.discriminators_init(
+        torch.Generator().manual_seed(seed + 101), torch.Generator().manual_seed(seed + 102),
+        width=mcfg.disc_width,
+    ).to(dev)
+    disc_state = tstep.init_state(critics, tstep.make_optimizer(**opt))
+    logger.info("gan_phase_start", steps=n_gan, lr=gan_lr)
+
+    def log_gan(step_no, gm, t0):
+        vals = {k: round(float(v), 5) for k, v in gm.items()}
+        logger.info("gan_step", step=step_no, elapsed_s=time.perf_counter() - t0, **vals)
+        if history:
+            history.write(json.dumps({"phase": "gan", "step": step_no, **vals}) + "\n")
+            history.flush()
+
+    ema_voc = tstep.ema_init_zeros(gen_state.params)
+    gm = {}
+    t0 = time.perf_counter()
+    if epoch_batches is not None:
+        run_gan, corpus = tstep.make_resident_gan_chunk(
+            mcfg, epoch_batches, chunk=chunk, ema_decay=ema_decay, device=dev
+        )
+        done = 0
+        while done < n_gan:
+            gen_state, disc_state, ema_voc, gm = run_gan(gen_state, disc_state, ema_voc, done, corpus)
+            done += chunk
+            log_gan(done, gm, t0)
+    else:
+        d_step, g_step = tstep.make_gan_steps(mcfg)
+        for i, batch in enumerate(batches()):
+            if i >= n_gan:
+                break
+            mel, audio, fmask = (torch.as_tensor(batch[k]).to(dev) for k in ("mel", "audio", "frame_mask"))
+            disc_state, d_loss = d_step(disc_state, gen_state.params, mel, audio)
+            gen_state, g_metrics = g_step(gen_state, disc_state.params, mel, audio, fmask)
+            ema_voc = tstep.ema_update(ema_voc, gen_state.params, ema_decay)
+            gm = {"d": d_loss, **g_metrics}
+            if (i + 1) % 50 == 0 or i == 0:
+                log_gan(i + 1, gm, t0)
+    # The adversarially trained vocoder's EMA (debiased) replaces the joint
+    # phase's vocoder in the serving weights.
+    ema.update(tstep.ema_debias(ema_voc, ema_decay, gen_state.step))
+    return gm
 
 
 def main(argv=None) -> None:
@@ -267,7 +341,8 @@ def main(argv=None) -> None:
     ap.add_argument("--no-learn-alignment", dest="learn_alignment", action="store_false",
                     help="force the uniform-duration bootstrap (default: auto — learn "
                          "alignment when the manifest has no duration column)")
-    ap.add_argument("--gan", action="store_true", help="adversarial vocoder fine-tune (not ported yet)")
+    ap.add_argument("--gan", action="store_true",
+                    help="adversarial vocoder fine-tune after the joint phase")
     ap.add_argument("--gan-steps", type=int, default=None)
     ap.add_argument("--gan-lr", type=float, default=2e-4)
     args = ap.parse_args(argv)

@@ -1,9 +1,10 @@
 """Train steps: the joint TTS loss under autograd, optax's optimizer in torch.optim.
 
-Counterpart of `gonova_tts_tpu/train/step.py` for one device, without the GAN
-phase. The step runs the plain PyTorch layers: the CUDA kernels of `ops/` (like
-the JAX package's Pallas kernels) have no backward, so a config with either kernel
-switch on is refused and a step launches no kernel.
+Counterpart of `gonova_tts_tpu/train/step.py` for one device: the joint step and
+the adversarial (HiFi-GAN) phase's discriminator and generator steps. Steps run
+the plain PyTorch layers: the CUDA kernels of `ops/` (like the JAX package's
+Pallas kernels) have no backward, so a config with either kernel switch on is
+refused and a step launches no kernel.
 
 The optimizer is the JAX package's `optax.chain(clip_by_global_norm(1.0),
 adamw(warmup_cosine_decay_schedule, b1=0.9, b2=0.98, weight_decay=0.01))`:
@@ -30,8 +31,9 @@ from torch import nn
 
 from ..config import ModelConfig
 from ..device import resolve_device
-from ..models import acoustic, aligner, layers, tts
+from ..models import acoustic, aligner, layers, tts, vocoder
 from . import losses
+from ._jax_prng import crop_offset
 
 
 @dataclass(frozen=True)
@@ -200,15 +202,19 @@ def tts_loss_fn(
     return total, metrics
 
 
-def make_train_step(cfg: ModelConfig, dtype=torch.float32, learn_alignment: bool = False):
-    """`train_step(state, batch) -> (state, metrics)`: one update of `state` in
-    place, after which the model's kernel-weight memos (`layers.cached`) are
-    dropped. Metrics stay on the device (detached); reading one synchronizes."""
+def _refuse_kernels(cfg: ModelConfig) -> None:
     if cfg.acoustic_pallas or cfg.vocos_pallas:
         raise ValueError(
             "training runs the plain layers: the acoustic_pallas/vocos_pallas kernels "
             "have no backward; turn both off in the training config"
         )
+
+
+def make_train_step(cfg: ModelConfig, dtype=torch.float32, learn_alignment: bool = False):
+    """`train_step(state, batch) -> (state, metrics)`: one update of `state` in
+    place, after which the model's kernel-weight memos (`layers.cached`) are
+    dropped. Metrics stay on the device (detached); reading one synchronizes."""
+    _refuse_kernels(cfg)
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
         state.opt_state.zero_grad()
@@ -262,6 +268,139 @@ def make_resident_train_chunk(
             ema = ema_update(ema, state.params, ema_decay)
             acc = metrics if not acc else {k: acc[k] + v for k, v in metrics.items()}
         return state, ema, {k: v / chunk for k, v in acc.items()}
+
+    return run_chunk, stacked
+
+
+# ---------------------------------------------------------------- GAN steps (vocoder)
+
+
+GAN_SEGMENT_SAMPLES = 8192  # HiFi-GAN trains its discriminators on ~0.34 s crops
+_CRITICS = ((vocoder.mpd_apply, "mpd"), (vocoder.msd_apply, "msd"))
+
+
+def _crop_pair(real: torch.Tensor, fake: torch.Tensor, step: int):
+    """The same GAN_SEGMENT_SAMPLES crop of both signals. Its offset is the JAX
+    package's draw for this step (`_jax_prng.crop_offset`), so both packages train
+    on the same samples; a signal no longer than the segment is not cropped."""
+    t = real.shape[1]
+    seg = min(GAN_SEGMENT_SAMPLES, t)
+    if seg == t:
+        return real, fake
+    off = crop_offset(int(step), t - seg + 1)
+    return real[:, off : off + seg], fake[:, off : off + seg]
+
+
+def _gan_loss_fns(cfg: ModelConfig, dtype=torch.float32):
+    """(d_loss_fn, g_loss_fn) of the adversarial phase.
+
+    The adversarial and feature-matching terms run on a per-step crop of
+    GAN_SEGMENT_SAMPLES (segment training, as in the paper); the mel-reconstruction
+    term stays full-length, on the plain log-mel. The discriminator loss sees the
+    generator's audio without its gradient."""
+
+    def d_loss_fn(disc_params, gen_params, mel, audio_real, step):
+        with torch.no_grad():
+            audio_fake = tts.vocode(gen_params, mel, cfg, dtype=dtype)
+        audio_real, audio_fake = _crop_pair(audio_real, audio_fake, step)
+        loss = 0.0
+        for apply_fn, key in _CRITICS:
+            real_outs = apply_fn(disc_params[key], audio_real, dtype=dtype)
+            fake_outs = apply_fn(disc_params[key], audio_fake, dtype=dtype)
+            loss = loss + losses.lsgan_discriminator_loss(real_outs, fake_outs)
+        return loss
+
+    def g_loss_fn(gen_params, disc_params, mel, audio_real, frame_mask, step):
+        audio_fake = tts.vocode(gen_params, mel, cfg, dtype=dtype)
+        adv = 0.0
+        fm = 0.0
+        real_seg, fake_seg = _crop_pair(audio_real, audio_fake, step)
+        for apply_fn, key in _CRITICS:
+            with torch.no_grad():  # the real audio's taps are constants of this loss
+                real_outs = apply_fn(disc_params[key], real_seg, dtype=dtype)
+            fake_outs = apply_fn(disc_params[key], fake_seg, dtype=dtype)
+            adv = adv + losses.lsgan_generator_loss(fake_outs)
+            fm = fm + losses.feature_matching_loss(real_outs, fake_outs)
+        # HiFi-GAN eq(7): L_G = L_adv + 2 L_fm + 45 L_mel (the mel L1 is also the
+        # metric the checkpoint eval grades).
+        l_mel = losses.mel_reconstruction_loss(audio_fake, mel, frame_mask, cfg)
+        total = adv + 2.0 * fm + 45.0 * l_mel
+        return total, {"adv": adv, "fm": fm, "mel": l_mel}
+
+    return d_loss_fn, g_loss_fn
+
+
+def _apply_grads(state: TrainState, loss: torch.Tensor) -> None:
+    """Gradients of `loss` for `state`'s parameters alone (the other network's
+    weights get none), one optimizer update, and the step count."""
+    params = state.opt_state.params
+    grads = torch.autograd.grad(loss, params, allow_unused=True)
+    for p, g in zip(params, grads):
+        p.grad = g
+    state.opt_state.update()
+    layers.clear_derived(state.params)
+    state.step += 1
+
+
+def make_gan_steps(cfg: ModelConfig, dtype=torch.float32):
+    """The adversarial phase's alternating steps:
+
+      d_step(disc_state, gen_params, mel, audio_real) -> (disc_state, d_loss)
+      g_step(gen_state, disc_params, mel, audio_real, frame_mask) -> (gen_state, metrics)
+
+    The generator's state holds the `{"vocoder"}` subtree only; the discriminators'
+    holds `{"mpd", "msd"}`. Each step updates its state in place; the crop offset
+    follows that state's own step count, as in the JAX package."""
+    _refuse_kernels(cfg)
+    d_loss_fn, g_loss_fn = _gan_loss_fns(cfg, dtype)
+
+    def d_step(disc_state: TrainState, gen_params, mel, audio_real):
+        loss = d_loss_fn(disc_state.params, gen_params, mel, audio_real, disc_state.step)
+        _apply_grads(disc_state, loss)
+        return disc_state, loss.detach()
+
+    def g_step(gen_state: TrainState, disc_params, mel, audio_real, frame_mask):
+        loss, metrics = g_loss_fn(gen_state.params, disc_params, mel, audio_real, frame_mask, gen_state.step)
+        _apply_grads(gen_state, loss)
+        return gen_state, {k: v.detach() for k, v in metrics.items()}
+
+    return d_step, g_step
+
+
+def make_resident_gan_chunk(
+    cfg: ModelConfig,
+    batches: Sequence[Dict[str, np.ndarray]],
+    chunk: int = 50,
+    ema_decay: float = 0.999,
+    dtype=torch.float32,
+    device=None,
+):
+    """The adversarial phase over a corpus resident on the device (as
+    make_resident_train_chunk): (mel, audio, frame_mask) of every batch stacked once
+    on `device`, `chunk` d/g step pairs a call cycling the batches, the generator's
+    EMA updated after each pair, metrics averaged over the chunk on the device.
+
+    Returns (run_chunk, stacked) where
+      run_chunk(gen_state, disc_state, ema, start, corpus) ->
+          (gen_state, disc_state, ema, mean_metrics)."""
+    dev = resolve_device(device)
+    keys = ("mel", "audio", "frame_mask")
+    stacked = {k: torch.as_tensor(np.stack([np.asarray(b[k]) for b in batches])).to(dev) for k in keys}
+    n = len(batches)
+    d_step, g_step = make_gan_steps(cfg, dtype)
+
+    def run_chunk(gen_state: TrainState, disc_state: TrainState, ema, start: int, corpus):
+        acc: Dict[str, torch.Tensor] = {}
+        for i in range(chunk):
+            batch = {k: v[(start + i) % n] for k, v in corpus.items()}
+            disc_state, d_loss = d_step(disc_state, gen_state.params, batch["mel"], batch["audio"])
+            gen_state, g_metrics = g_step(
+                gen_state, disc_state.params, batch["mel"], batch["audio"], batch["frame_mask"]
+            )
+            ema = ema_update(ema, gen_state.params, ema_decay)
+            metrics = {"d": d_loss, **g_metrics}
+            acc = metrics if not acc else {k: acc[k] + v for k, v in metrics.items()}
+        return gen_state, disc_state, ema, {k: v / chunk for k, v in acc.items()}
 
     return run_chunk, stacked
 

@@ -105,7 +105,8 @@ def test_info_has_the_jax_clis_keys(capsys):
     assert ours["version"] == theirs["version"]
     assert ours["jax_backend"] == ("cuda" if torch.cuda.is_available() else "cpu")
     assert ours["torch_version"] == torch.__version__
-    assert set(ours["model_families"]) == {"novaspeech", "novavocos", "novaspk", "novatts"}
+    assert set(ours["model_families"]) == set(theirs["model_families"]) == {
+        "novaspeech", "novagan", "novavocos", "novaspk", "novatts"}
     for name, family in ours["model_families"].items():
         assert set(family) == set(theirs["model_families"][name]) == {"kind", "description"}
         assert family["kind"] == theirs["model_families"][name]["kind"]

@@ -429,3 +429,47 @@ def test_train_step_on_the_card_launches_no_kernel_and_matches_the_cpu(setup):
     for cpu, card in zip(runs["cpu"], runs["cuda"]):
         for k in cpu:
             np.testing.assert_allclose(card[k], cpu[k], rtol=1e-3, err_msg=k)
+
+
+# ------------------------------------------------------------------ the seventh slice: the adversarial phase
+
+
+@pytest.mark.gpu
+def test_gan_pair_on_the_card_launches_no_kernel_and_matches_the_cpu(setup):
+    """Two d/g pairs of make_gan_steps (warmup 1: the second moves the weights) on
+    the card and on the CPU from one seeded generator (HiFi-GAN, initial width 32,
+    folded) and critics (disc_width 0.25), over a 40-frame batch whose GAN crop
+    fires: d, adv, fm and mel agree per pair within rtol 1e-4, and no kernel
+    wrapper launches."""
+    import copy
+
+    from gonova_tts_tpu_torch.models import layers, vocoder
+    from gonova_tts_tpu_torch.train import step as tstep
+
+    cfg = ModelConfig(vocoder_family="hifigan", upsample_initial_channel=32, disc_width=0.25)
+    gen0 = layers.group(vocoder=vocoder.init(torch.Generator().manual_seed(0), cfg))
+    disc0 = vocoder.discriminators_init(torch.Generator().manual_seed(1), torch.Generator().manual_seed(2), 0.25)
+    rng = np.random.default_rng(3)
+    batch = {
+        "mel": rng.normal(-4.0, 2.0, (2, 40, cfg.n_mels)).astype(np.float32),
+        "audio": (0.1 * rng.standard_normal((2, 40 * cfg.hop_length))).astype(np.float32),
+        "frame_mask": np.ones((2, 40), np.float32),
+    }
+    runs = {}
+    for where in ("cpu", "cuda"):
+        opt = tstep.make_optimizer(lr=2e-4, warmup=1, decay_steps=10)
+        gen = tstep.init_state(copy.deepcopy(gen0).to(where), opt)
+        disc = tstep.init_state(copy.deepcopy(disc0).to(where), opt)
+        d_step, g_step = tstep.make_gan_steps(cfg)
+        b = {k: torch.as_tensor(v, device=where) for k, v in batch.items()}
+        before = ops.launch_counts()
+        parts = []
+        for _ in range(2):
+            disc, d = d_step(disc, gen.params, b["mel"], b["audio"])
+            gen, m = g_step(gen, disc.params, b["mel"], b["audio"], b["frame_mask"])
+            parts.append({"d": float(d), **{k: float(v) for k, v in m.items()}})
+        assert ops.launch_counts() == before
+        runs[where] = parts
+    for cpu, card in zip(runs["cpu"], runs["cuda"]):
+        for k in cpu:
+            np.testing.assert_allclose(card[k], cpu[k], rtol=1e-4, err_msg=k)

@@ -162,5 +162,11 @@ def test_synthesize_matches_jax(tiny, kernels):
 
 
 def test_hifigan_family_is_not_served():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tts.TTS(ModelConfig(**{**TINY, "vocoder_family": "hifigan"}))
+    """The family the port once refused now builds its generator (its serving is
+    held against JAX in test_torch_vocoder.py); a family neither package has is
+    refused with the JAX package's ValueError."""
+    from gonova_tts_tpu_torch.models import vocoder
+
+    assert isinstance(tts.TTS(ModelConfig(**{**TINY, "vocoder_family": "hifigan"})).vocoder, vocoder.Generator)
+    with pytest.raises(ValueError, match="unknown vocoder_family"):
+        tts.TTS(ModelConfig(**{**TINY, "vocoder_family": "wavenet"}))
