@@ -2,6 +2,7 @@
 """Drive the PyTorch port (gonova_tts_tpu_torch) on one CUDA card and check it.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --phase parallel   # phase 11 alone (after the build), for a multi-card machine
 
 Phases; any failure exits non-zero before the final line:
   1. device: name and power limit (nvidia-smi); no card → exit 3, no result.
@@ -85,9 +86,24 @@ Phases; any failure exits non-zero before the final line:
      launched; ms per pair, peak memory, the chunk means beside the JAX run's GAN lines;
      the final checkpoint served in bf16 with both kernels (`vocos_stack` launches);
      (c) five pairs of the full-width HiFi-GAN generator at batch 8 x 512 frames.
- 11. output: a `kernels` JSON line (every kernel with its launches on each path,
-     `launches_hifigan_path` and `launches_gan_phase` included), the nvidia-smi line,
-     then the `ok` JSON line.
+ 11. parallel: (a) data-parallel serving: the demo checkpoint with both kernel switches
+     on and `engine.data_parallel = DP_REPLICAS`, on distinct cards where there are
+     enough, else every replica on cuda:0 (through `multi.local_devices`; the line
+     says how many devices are distinct), against a one-replica engine in this
+     process: batch DP_BATCH one-graph and two-stage in f32 (max |error| within
+     DP_F32_BOUND) and in bf16 (parity.py's three limits), then one stream and one
+     `embed_voice_file`; launch counts from 0 just before the bf16 run and read just
+     after, and each stack launch attributed to the replica whose weights it got:
+     both stacks on every replica; batch latencies of both engines. (b) sharded
+     training: a 1x1 mesh (NCCL, this process) runs SHARDED_STEPS steps of
+     make_sharded_train_step and then one sharded GAN pair at full width on one
+     demo-corpus batch (8 x 512 frames, learned alignment) against make_train_step
+     and make_gan_steps from the same state: losses and parameters within
+     SHARDED_RTOL; no kernel launched. With two cards also 2x1 and 1x2, with four
+     also 2x2, in spawned workers: losses within MULTI_CARD_RTOL of one card's.
+ 12. output: a `kernels` JSON line (every kernel with its launches on each path,
+     `launches_hifigan_path`, `launches_gan_phase` and `launches_dp_path` included),
+     the nvidia-smi line, then the `ok` JSON line.
 
 Bounds (max |error| unless named):
   kernels f32: KERNEL_F32_BOUND (summation order through up to 8 layers);
@@ -1608,7 +1624,297 @@ def run_gan(torch, np, report, smi, dev="cuda"):
     return gan_launches, checks
 
 
+# ------------------------------------------------------------------ phase 11
+
+
+DP_REPLICAS = 2
+DP_BATCH = 16
+DP_F32_BOUND = 3e-3  # tests/test_multi_serving.py's bound between dp and one device
+SHARDED_STEPS = 3
+SHARDED_RTOL = 1e-5  # 1x1 mesh vs make_train_step: losses and parameters (relative L2)
+MULTI_CARD_RTOL = 1e-4  # 2x1, 1x2, 2x2 vs one device: losses, NCCL's summation order
+PARALLEL_MODEL = {}  # ModelConfig() fields of the sharded steps: full width
+
+
+def replica_launches(eng, fn):
+    """fn() with each stack launch attributed to the replica whose packed weights it
+    was given (each replica keeps its own `layers.cached` memos). Returns (fn's
+    result, {replica: {stack: launches}})."""
+    from gonova_tts_tpu_torch.ops import transformer_stack as ts_op
+    from gonova_tts_tpu_torch.ops import vocos_stack as vs_op
+
+    seen = []
+    wrapped = {(ts_op, "transformer_stack"): 1, (vs_op, "vocos_stack"): 0}  # index of `packed` after x
+    originals = {key: getattr(*key) for key in wrapped}
+
+    def spy(key):
+        def call(x, *args, **kw):
+            seen.append((key[1], id(args[wrapped[key]])))
+            return originals[key](x, *args, **kw)
+        return call
+
+    for key in wrapped:
+        setattr(*key, spy(key))
+    try:
+        result = fn()
+    finally:
+        for key, f in originals.items():
+            setattr(*key, f)
+    owner = {id(v): r for r, rep in enumerate(eng.replicas) for m in rep.modules()
+             for v in m.__dict__.get("_derived", {}).values()}
+    counts = {r: {"transformer_stack": 0, "vocos_stack": 0} for r in range(len(eng.replicas))}
+    for name, key in seen:
+        counts[owner[key]][name] += 1
+    return result, counts
+
+
+def graded(torch, eng, cand, ref, metric):
+    """parity.py's three metrics (parity_gpu.gate) on two lists of audio rows, each
+    zero-padded to the longest row."""
+    import parity_gpu
+    from gonova_tts_tpu_torch.audio.mel import mel_spectrogram
+
+    n = max(len(a) for a in cand + ref)
+    m = eng.mcfg
+
+    def stacked(rows):
+        out = torch.zeros((len(rows), n), device=eng.device)
+        for i, r in enumerate(rows):
+            out[i, : len(r)] = torch.as_tensor(r, device=eng.device)
+        return out
+
+    a, b = stacked(cand), stacked(ref)
+    with torch.inference_mode():
+        mels = [mel_spectrogram(x, sr=m.sample_rate, n_fft=m.n_fft, hop_length=m.hop_length, win_length=m.win_length,
+                                n_mels=m.n_mels, fmin=m.fmin, fmax=m.fmax) for x in (a, b)]
+        out = parity_gpu.gate(mels[0], mels[1], a, b, metric=metric)
+    out["max_abs_diff"] = float((a - b).abs().max())
+    out["same_lengths"] = [len(x) for x in cand] == [len(x) for x in ref]
+    out["pass"] = out["pass"] and out["same_lengths"]
+    return out
+
+
+def dp_engines(torch, dtype: str, dev: str):
+    """(data_parallel=2 engine, one-replica engine) on the demo checkpoint with both
+    kernel switches on."""
+    from gonova_tts_tpu_torch.engine import TTSEngine
+
+    engines = []
+    for n in (DP_REPLICAS, 1):
+        cfg = engine_config(dtype, kernels=True)
+        cfg.engine.data_parallel = n
+        eng = TTSEngine(cfg, device=dev)
+        eng.load(warmup=True)
+        engines.append(eng)
+    return engines
+
+
+def timed_batches(torch, eng, texts, mode, reps=3):
+    pinned(eng, mode, texts)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        pinned(eng, mode, texts)
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def sharded_vs_plain(torch, np, cfg, batch, mesh, dev):
+    """SHARDED_STEPS steps of make_sharded_train_step on `mesh` and of
+    make_train_step, from one seeded state, on one corpus batch (learned
+    alignment); then one GAN d/g pair of each (the Vocos generator, critics at
+    width 1.0). Returns the runs (per-step losses, ms per step, the GAN pair's
+    losses), the largest relative loss differences of the steps and of the pair,
+    and the parameters' difference after the steps (relative L2 over all of them,
+    and the largest element: a gradient that is zero in exact arithmetic, as the
+    attention key bias's, takes Adam's step at either sign)."""
+    import copy
+
+    from gonova_tts_tpu_torch.models import layers, tts, vocoder
+    from gonova_tts_tpu_torch.train import step as tstep
+
+    model = tts.TTS(cfg, torch.Generator().manual_seed(7), with_aligner=True).to(dev)
+    b = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+    opt = tstep.make_optimizer(lr=2e-4, warmup=1, decay_steps=10)
+    runs = {}
+    for name in ("sharded", "plain"):
+        state = tstep.init_state(copy.deepcopy(model), opt)
+        if name == "sharded":
+            step, state = tstep.make_sharded_train_step(cfg, opt, mesh, state, b, learn_alignment=True)
+        else:
+            step = tstep.make_train_step(cfg, learn_alignment=True)
+        losses, stamps = [], [time.perf_counter()]
+        for _ in range(SHARDED_STEPS):
+            state, m = step(state, b)
+            losses.append({k: float(v) for k, v in m.items()})  # reading synchronizes
+            stamps.append(time.perf_counter())
+        gen = tstep.init_state(layers.group(vocoder=state.params.vocoder), opt)
+        critics = vocoder.discriminators_init(
+            torch.Generator().manual_seed(101), torch.Generator().manual_seed(102), cfg.disc_width).to(dev)
+        disc = tstep.init_state(critics, opt)
+        if name == "sharded":
+            d_step, g_step, gen, disc = tstep.make_sharded_gan_steps(cfg, opt, opt, mesh, gen, disc)
+        else:
+            d_step, g_step = tstep.make_gan_steps(cfg)
+        disc, dl = d_step(disc, gen.params, b["mel"], b["audio"])
+        gen, gm = g_step(gen, disc.params, b["mel"], b["audio"], b["frame_mask"])
+        runs[name] = {
+            "losses": losses, "ms_per_step": [(t1 - t0) * 1e3 for t0, t1 in zip(stamps, stamps[1:])],
+            "gan_pair": {"d": float(dl), **{k: float(v) for k, v in gm.items()}},
+            "params": {k: p.detach() for k, p in state.params.named_parameters()},
+        }
+    worst_loss = max(abs(a[k] - p[k]) / max(abs(p[k]), 1e-12)
+                     for a, p in zip(runs["sharded"]["losses"], runs["plain"]["losses"]) for k in p)
+    worst_gan = max(abs(runs["sharded"]["gan_pair"][k] - v) / max(abs(v), 1e-12)
+                    for k, v in runs["plain"]["gan_pair"].items())
+    a, p = (torch.cat([v.reshape(-1) for v in runs[n].pop("params").values()]) for n in ("sharded", "plain"))
+    param_diff = {"rel_l2": float(torch.linalg.norm(a - p) / torch.linalg.norm(p)), "max_abs": float((a - p).abs().max())}
+    return runs, worst_loss, worst_gan, param_diff
+
+
+def _mesh_losses(n_data, n_model, batch, model_fields):
+    """One rank of a multi-card mesh: SHARDED_STEPS sharded steps from the seeded
+    state of `sharded_vs_plain`; rank 0 returns the losses per step."""
+    import torch
+
+    from gonova_tts_tpu_torch.config import ModelConfig
+    from gonova_tts_tpu_torch.models import tts
+    from gonova_tts_tpu_torch.parallel import make_mesh, rank_device
+    from gonova_tts_tpu_torch.train import step as tstep
+
+    cfg, dev = ModelConfig(**model_fields), rank_device()
+    model = tts.TTS(cfg, torch.Generator().manual_seed(7), with_aligner=True).to(dev)
+    b = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+    opt = tstep.make_optimizer(lr=2e-4, warmup=1, decay_steps=10)
+    step, state = tstep.make_sharded_train_step(
+        cfg, opt, make_mesh(n_data, n_model), tstep.init_state(model, opt), b, learn_alignment=True)
+    losses = []
+    for _ in range(SHARDED_STEPS):
+        state, m = step(state, b)
+        losses.append({k: float(v) for k, v in m.items()})
+    return losses if torch.distributed.get_rank() == 0 else None
+
+
+def run_parallel(torch, np, report, smi, dev="cuda"):
+    """Phase 11: data-parallel serving and sharded training. Returns the kernel
+    launches of the dp path (counts from 0 just before, read just after) and checks."""
+    import torch.distributed as dist
+
+    from gonova_tts_tpu_torch import ops
+    from gonova_tts_tpu_torch.config import ModelConfig
+    from gonova_tts_tpu_torch.engine import multi
+    from gonova_tts_tpu_torch.parallel import launch, make_mesh
+    from gonova_tts_tpu_torch.parallel import mesh as pmesh
+    from gonova_tts_tpu_torch.train.data import ManifestDataset
+    from gonova_tts_tpu_torch.train.synth_corpus import generate_corpus
+
+    t_phase = time.perf_counter()
+    sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)  # dev="cpu": a rehearsal
+    out, checks = {"device": smi}, {}
+    n_cards = torch.cuda.device_count() if dev == "cuda" else 0
+
+    # (a) dp serving: two replicas, on two cards where there are two, else both on cuda:0.
+    devices = multi.local_devices(dev)
+    real_local_devices = multi.local_devices
+    if len(devices) < DP_REPLICAS:
+        devices = [devices[0]] * DP_REPLICAS
+        multi.local_devices = lambda device: devices
+    try:
+        texts = [SENTENCES[i % len(SENTENCES)] for i in range(DP_BATCH)]
+        dp32, one32 = dp_engines(torch, "float32", dev)
+        f32 = {mode: max_diff(pinned(dp32, mode, texts), pinned(one32, mode, texts)) for mode in (False, True)}
+        del dp32, one32
+        dp, one = dp_engines(torch, "bfloat16", dev)
+    finally:
+        multi.local_devices = real_local_devices
+    replicas = [str(d) for d in dp._dp.devices]
+    ops.reset_launch_counts()
+
+    def dp_path():
+        got = {mode: pinned(dp, mode, texts) for mode in (False, True)}
+        chunks = list(dp.synthesize_stream(STREAM_TEXT))
+        emb = dp.embed_voice_file(VOICE_WAV)
+        sync()
+        return got, chunks, emb
+
+    (got, chunks, emb), per_replica = replica_launches(dp, dp_path)
+    dp_launches = ops.launch_counts()
+    want = {mode: pinned(one, mode, texts) for mode in (False, True)}
+    lines = {("two_stage" if mode else "one_graph"): graded(torch, dp, got[mode], want[mode], f"dp{DP_REPLICAS}_vs_one_replica_bf16")
+             for mode in (False, True)}
+    stream_ref = list(one.synthesize_stream(STREAM_TEXT))
+    emb_ref = one.embed_voice_file(VOICE_WAV)
+    timing = {}
+    if dev == "cuda":
+        for mode in (False, True):
+            key = "two_stage" if mode else "one_graph"
+            timing[key] = {f"{n}_ms_per_batch{DP_BATCH}": timed_batches(torch, e, texts, mode)
+                           for n, e in (("dp", dp), ("one_replica", one))}
+    out["dp_serving"] = {
+        "checkpoint": DEMO, "batch": DP_BATCH, "replica_devices": replicas, "distinct_devices": len(set(replicas)),
+        "note": "two replicas on one card measure the mechanism (sharding, per-replica launches), not scaling"
+                if len(set(replicas)) == 1 else "replicas on distinct cards",
+        "f32_max_abs_diff_vs_one_replica": {"one_graph": f32[False], "two_stage": f32[True]}, "f32_bound": DP_F32_BOUND,
+        "bf16_vs_one_replica": lines, "launches": dp_launches, "launches_per_replica": per_replica,
+        "stream_max_abs_diff_vs_one_replica": max_diff([np.concatenate(chunks)], [np.concatenate(stream_ref)]),
+        "embed_max_abs_diff_vs_one_replica": float(np.abs(emb - emb_ref).max()), "timing": timing,
+    }
+    checks["dp_f32_within_bound"] = max(f32.values()) <= DP_F32_BOUND
+    checks["dp_bf16_parity"] = all(line["pass"] for line in lines.values())
+    checks["dp_stacks_launch_on_every_replica"] = all(v > 0 for c in per_replica.values() for v in c.values())
+    checks["dp_finite"] = all(np.isfinite(w).all() and w.size > 0 for m in got.values() for w in m) and all(
+        np.isfinite(c).all() for c in chunks) and bool(np.isfinite(emb).all())
+    checks["dp_embed_launches_mel"] = dp_launches.get("mel_spectrogram", 0) > 0
+    del dp, one
+
+    # (b) sharded training: a 1x1 mesh in this process (NCCL on the card), full width,
+    # one demo-corpus batch of 8 x 512 frames; wider meshes where there are cards.
+    cfg = ModelConfig(**PARALLEL_MODEL)
+    with tempfile.TemporaryDirectory() as tmp:
+        generate_corpus(tmp, variable=True, holdout=2)
+        batch = next(ManifestDataset(
+            os.path.join(tmp, "manifest_train.txt"), cfg, batch_size=8, token_buckets=(64,), ref_mel=True,
+            learn_alignment=True,
+        ).epoch(0))
+        deterministic = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True  # both runs take the same convolution algorithms
+        pmesh.init_group("file://" + os.path.join(tmp, "store"), 1, 0, 0, 1, dev)
+        try:
+            ops.reset_launch_counts()
+            runs, worst_loss, worst_gan, param_diff = sharded_vs_plain(torch, np, cfg, batch, make_mesh(1, 1), dev)
+            train_launches = ops.launch_counts()
+        finally:
+            dist.destroy_process_group()
+            torch.backends.cudnn.deterministic = deterministic
+    meshes = {"1x1": {"backend": "nccl" if dev == "cuda" else "gloo", "worst_loss_rel": worst_loss,
+                      "worst_gan_rel": worst_gan, "params_after_steps": param_diff, "runs": runs}}
+    checks["sharded_1x1_losses"] = worst_loss <= SHARDED_RTOL
+    checks["sharded_1x1_params"] = param_diff["rel_l2"] <= SHARDED_RTOL
+    checks["sharded_1x1_gan_pair"] = worst_gan <= SHARDED_RTOL
+    checks["sharded_launches_no_kernel"] = not any(train_launches.values())
+    wider = [(2, 1), (1, 2)] * (n_cards >= 2) + [(2, 2)] * (n_cards >= 4)
+    if dev == "cpu":  # a rehearsal: the spawned path on gloo
+        wider = [(2, 1)]
+    for n_data, n_model in wider:
+        losses = launch.spawn(_mesh_losses, n_data * n_model, dev, n_data, n_model, batch, PARALLEL_MODEL)[0]
+        worst = max(abs(a[k] - p[k]) / max(abs(p[k]), 1e-12)
+                    for a, p in zip(losses, runs["plain"]["losses"]) for k in p)
+        meshes[f"{n_data}x{n_model}"] = {"worst_loss_rel": worst, "losses": losses}
+        checks[f"sharded_{n_data}x{n_model}_losses"] = worst <= MULTI_CARD_RTOL
+    out["sharded_training"] = {
+        "config": "ModelConfig() full width, f32, learned alignment; one demo-corpus batch of 8 x 512 frames; "
+                  f"{SHARDED_STEPS} steps (lr 2e-4, warmup 1) then one GAN pair (critics at width 1.0)",
+        "meshes_ran": sorted(meshes), "cards": n_cards, "meshes": meshes, "bounds": {
+            "1x1": SHARDED_RTOL, "multi_card_losses": MULTI_CARD_RTOL},
+        "launches": train_launches,
+    }
+    out["phase_s"] = time.perf_counter() - t_phase
+    out["checks"] = checks
+    report["parallel"] = out
+    return dp_launches, checks
+
+
 def main() -> None:
+    only_parallel = sys.argv[1:] == ["--phase", "parallel"]  # the cross-card phase alone, on a multi-card machine
     try:
         import numpy as np
         import torch
@@ -1633,9 +1939,19 @@ def main() -> None:
         fail(f"kernel build: {e}")
     print(f"build: {json.dumps({k: round(v, 1) for k, v in built.items()})} in {time.perf_counter() - t0:.1f} s", flush=True)
 
+    report = {}
+    if only_parallel:
+        parallel_checks = run_parallel(torch, np, report, smi)[1]
+        print("parallel: " + json.dumps(report["parallel"]), flush=True)
+        if not all(parallel_checks.values()):
+            fail(f"checks failed: {[k for k, v in parallel_checks.items() if not v]}")
+        print(smi, flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
+        }}), flush=True)
+        return
     model, _ = params.load_checkpoint(DEMO, ModelConfig(), dev)
     rng = np.random.default_rng(0)
-    report = {}
     gm_cases = gemm_cases(torch, dev, np.random.default_rng(1))  # its own stream: the kernel cases keep their inputs
     for c in gm_cases:
         print("gemm case: " + json.dumps(c), flush=True)
@@ -1666,6 +1982,12 @@ def main() -> None:
     print("hifigan: " + json.dumps(report["hifigan"]), flush=True)
     gan_launches, gan_checks = run_gan(torch, np, report, smi)
     print("gan: " + json.dumps(report["gan"]), flush=True)
+    dp_launches, parallel_checks = run_parallel(torch, np, report, smi)
+    par = report["parallel"]
+    print("parallel: " + json.dumps(par), flush=True)
+    print("parallel: dp replicas on {} ({} distinct), sharded meshes run: {}".format(
+        par["dp_serving"]["replica_devices"], par["dp_serving"]["distinct_devices"],
+        par["sharded_training"]["meshes_ran"]), flush=True)
     mel_voice = next(c for c in mel_cs if c["case"] == "voice B=1 T=239872")
     print("mel kernel at the voice path's shape: " + json.dumps(
         {k: mel_voice[k] for k in ("ms", "device_ms", "plain_ms", "matmul_ms", "bound_ms", "gflop")}), flush=True)
@@ -1683,6 +2005,7 @@ def main() -> None:
             **{k: rep[k] for k in ("device_ms", "matmul_ms") if k in rep},
             "at": f"{main_case} {dtype}", **extra,
             "launches_hifigan_path": hifigan_launches.get(name, 0), "launches_gan_phase": gan_launches.get(name, 0),
+            "launches_dp_path": dp_launches.get(name, 0),
             "cases": cases,
         }
 
@@ -1714,7 +2037,7 @@ def main() -> None:
     bad = [f"{c['case']} {c['dtype']}" for c in gm_cases + ts_cases + vs_cases + mel_cs + cb_cases + [chain, chain_bf16]
            if not c["ok"]]
     bad += [k for k, v in {**kernel_checks, **checks, **voice_checks, **service_checks, **parity_checks,
-                           **train_checks, **hifigan_checks, **gan_checks}.items() if not v]
+                           **train_checks, **hifigan_checks, **gan_checks, **parallel_checks}.items() if not v]
     bad += [f"{k['name']} never launched on its path" for k in kernels if k["launches"] <= 0]
     if bad:
         print(json.dumps({"kernels": kernels}), flush=True)

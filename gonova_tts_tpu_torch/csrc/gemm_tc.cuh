@@ -454,19 +454,23 @@ struct Plan {
 
 // Internal linkage: each library that includes this header has its own copy of the
 // kernels, and so needs its own opted_in (a static of an inline function would be
-// one symbol for the whole process).
+// one symbol for the whole process). The opt-in is an attribute of the kernel on the
+// current device only, so it is kept per device: bit d for device d.
 namespace {
 template <typename TO, bool F32_GELU, int WGS, int BN>
 int launch(const CUtensorMap& map_a, const CUtensorMap& map_w, const Params<TO>& p, int B, cudaStream_t s) {
   constexpr int BM = 64 * WGS;
   constexpr int TC_STAGES = (BM + BN) * TC_BK * 2 > 24 * 1024 ? 3 : 4;
   constexpr int SMEM = TC_STAGES * (BM + BN) * TC_BK * 2 + 2 * TC_STAGES * 8 + 1024;
-  static bool opted_in = false;
-  if (!opted_in) {
+  static uint64_t opted_in = 0;
+  int dev = 0;
+  if (cudaError_t e = cudaGetDevice(&dev)) return (int)e;
+  if (dev >= 64) return (int)cudaErrorInvalidDevice;
+  if (!(opted_in >> dev & 1)) {
     cudaFuncSetAttribute(gemm_tc_kernel<TO, F32_GELU, WGS, BN, TC_STAGES>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                          SMEM);
     PORT_RETURN_IF_ERROR();
-    opted_in = true;
+    opted_in |= uint64_t(1) << dev;
   }
   dim3 grid((p.N + BN - 1) / BN, (p.T_len + BM - 1) / BM, B * p.split);
   gemm_tc_kernel<TO, F32_GELU, WGS, BN, TC_STAGES><<<grid, WGS * 128 + 32, SMEM, s>>>(map_a, map_w, p);

@@ -276,7 +276,10 @@ __global__ void __cluster_dims__(G, 1, 1) __launch_bounds__(THREADS, 1) mel_kern
 }  // namespace port
 
 namespace {
-size_t opted_in = 0;  // dynamic shared memory the kernel is allowed so far
+// Dynamic shared memory the kernel is allowed so far, per device: the opt-in is an
+// attribute of the kernel on the current device only.
+constexpr int MAX_DEVICES = 64;
+size_t opted_in[MAX_DEVICES] = {};
 }
 
 // x [B, T] float32 audio (unpadded), bases the split-TF32 stage images of
@@ -299,10 +302,13 @@ extern "C" int mel_spectrogram_forward(int B, int T, int n_frames, int hop, int 
   p.region0 = max(p.rows * p.pitch, FT * n_mels);  // the audio, then the partial mels
   const size_t smem = 1024 + RING_BYTES + sizeof(float) * ((size_t)p.region0 + NB * n_mels + 2 * n_mels);
   if (smem > 232448 - 1024) return (int)cudaErrorInvalidValue;  // 227 KB a block, the barriers beside
-  if (smem > opted_in) {
+  int dev = 0;
+  if (cudaError_t e = cudaGetDevice(&dev)) return (int)e;
+  if (dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  if (smem > opted_in[dev]) {
     cudaFuncSetAttribute(mel_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     PORT_RETURN_IF_ERROR();
-    opted_in = smem;
+    opted_in[dev] = smem;
   }
   const dim3 grid(((n_frames + FT - 1) / FT) * G, B);
   mel_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(p);

@@ -22,8 +22,12 @@ surface (`load`, `warmup`, `embed_voice`, `embed_voice_file`, `synthesize_batch`
 
 PyTorch runs eagerly, so there is no compile cache; `warmup` runs the warmup
 shapes once. `engine.data_parallel` resolves as in the JAX engine (0 = every
-device; more than exist raises), but serving on more than one device is not
-ported yet: such a request raises (ROADMAP.md, the parallel item).
+device of `multi.local_devices`; more than exist raises). With two or more, each
+device holds a replica (`engine/multi.py`) and a batch, rounded up to a multiple of
+the device count, is split into contiguous row blocks, one per replica: every
+shard is enqueued before any is read back. In two-stage mode the frame bucket comes
+from the whole batch's frame counts, as the JAX engine's sharded encode sees them.
+Streaming and voice embedding run on replica 0.
 """
 
 from __future__ import annotations
@@ -47,6 +51,7 @@ from ..models import tts
 from ..text import batch_to_bucket, pick_bucket, segment_text, text_to_ids
 from ..ops.mel_spectrogram import mel_spectrogram as mel_spectrogram_fused
 from ..utils import Timers, read_wav
+from . import multi
 
 logger = logging.getLogger("gonova_tts_tpu_torch.engine")
 
@@ -68,6 +73,8 @@ class TTSEngine:
             self.mcfg = self.mcfg.model_copy(update={"acoustic_pallas": True})
         self.seed = seed
         self.params: Optional[tts.TTS] = None
+        self.replicas: List[tts.TTS] = []  # one per data-parallel device; [0] is self.params
+        self._dp: Optional[multi.DataParallel] = None
         self.is_loaded = False
         self.hop = self.mcfg.hop_length
         self.sample_rate = self.mcfg.sample_rate
@@ -124,6 +131,12 @@ class TTSEngine:
             self.params = tts.TTS(self.mcfg, g).to(self.device)
             logger.info("params initialized, seed %d", self.seed)
         self.params.eval()
+        if self._dp is not None:
+            self.replicas = self._dp.place_params(self.params)
+            self.params, self.device = self.replicas[0], self._dp.devices[0]
+            logger.info("data parallel over %s", [str(d) for d in self._dp.devices])
+        else:
+            self.replicas = [self.params]
 
         self._auto_two_stage = False
         if self.ecfg.two_stage_batch == "auto":
@@ -139,17 +152,12 @@ class TTSEngine:
         logger.info("engine loaded in %.2f s", time.time() - t0)
 
     def _resolve_data_parallel(self) -> int:
-        """`engine.data_parallel` as the JAX engine reads it: 0 means every device
-        (`torch.cuda.device_count()` on CUDA, 1 on the CPU); more than exist raises."""
-        have = torch.cuda.device_count() if self.device.type == "cuda" else 1
-        n = self.ecfg.data_parallel or have
-        if n > have:
-            raise ValueError(f"requested {n} devices, have {have}")
-        if n > 1:
-            raise NotImplementedError(
-                f"engine.data_parallel={n}: data-parallel serving (engine/multi.py) is not "
-                "ported yet; see ROADMAP.md, Open items §1, the parallel item"
-            )
+        """`engine.data_parallel` as the JAX engine reads it: 0 means every device of
+        `multi.local_devices` (each CUDA card, or the one CPU); more than exist
+        raises; two or more serve through `multi.DataParallel`."""
+        devices = multi.local_devices(self.device)
+        n = self.ecfg.data_parallel or len(devices)
+        self._dp = multi.DataParallel(n, devices) if n > 1 else None
         return n
 
     @property
@@ -183,41 +191,62 @@ class TTSEngine:
         host = audio.cpu().numpy()
         return i16_to_f32(host) if self.ecfg.transfer_dtype == "int16" else host.astype(np.float32)
 
-    def _tensors(self, tokens, mask, spk, exagg):
-        dev = self.device
+    def _tensors(self, tokens, mask, spk, exagg, device=None):
+        dev = device or self.device
         return (
             torch.as_tensor(tokens, device=dev), torch.as_tensor(mask, device=dev),
             torch.as_tensor(spk, device=dev), torch.as_tensor(exagg, device=dev),
         )
 
+    def _shards(self, tokens, mask, spk, exagg):
+        """[(replica, its device tensors)]: the whole batch on the one replica, or
+        each data-parallel replica's contiguous block of rows."""
+        if self._dp is None:
+            return [(self.params, self._tensors(tokens, mask, spk, exagg))]
+        parts = [self._dp.shard_rows(a) for a in (tokens, mask, spk, exagg)]
+        return [
+            (rep, self._tensors(*(p[i] for p in parts), device=dev))
+            for i, (rep, dev) in enumerate(zip(self.replicas, self._dp.devices))
+        ]
+
     def warmup(self) -> None:
         """Run each configured (batch, token-bucket) shape once — in two-stage mode
         encode plus decode_vocode at every frame bucket the shape can dispatch — and
-        the streaming window shape."""
+        the streaming window shape. Under data parallelism the batch is rounded as
+        serving rounds it and every replica runs its shard's shape."""
         dtype = self.compute_dtype
         with torch.inference_mode():
             for batch, bucket in self.ecfg.warmup_shapes:
                 t0 = time.time()
-                args = self._tensors(
+                if self._dp is not None:
+                    batch = self._dp.round_batch(batch)
+                shards = self._shards(
                     np.zeros((batch, bucket), np.int32), np.ones((batch, bucket), np.float32),
                     np.zeros((batch, self.mcfg.speaker_dim), np.float32), np.zeros((batch,), np.float32),
                 )
                 if self.two_stage_enabled:
-                    e = tts.encode_acoustic(self.params, *args, self.mcfg, dtype)
-                    e["total_frames"].cpu()
+                    encs = [tts.encode_acoustic(rep, *args, self.mcfg, dtype) for rep, args in shards]
+                    for e in encs:
+                        e["total_frames"].cpu()
                     self.stats["compiles"] += 1
                     t_full = bucket * self.mcfg.max_frames_per_token
                     fbs = [x for x in self.ecfg.vocode_frame_buckets if x < t_full]
                     for fb in fbs + [t_full]:
-                        out = tts.decode_vocode(
-                            self.params, e["enc"], e["spk"], e["durations"], args[1], fb,
-                            self.mcfg, dtype, local_attention_from=t_full,
-                        )
-                        out["total_samples"].cpu()
+                        outs = [
+                            tts.decode_vocode(
+                                rep, e["enc"], e["spk"], e["durations"], args[1], fb,
+                                self.mcfg, dtype, local_attention_from=t_full,
+                            )
+                            for (rep, args), e in zip(shards, encs)
+                        ]
+                        for out in outs:
+                            out["total_samples"].cpu()
                         self._vocode_shapes_seen.add((batch, bucket, fb))
                         self.stats["compiles"] += 1
                 else:
-                    tts.synthesize(self.params, *args, self.mcfg, dtype)["total_samples"].cpu()
+                    outs = [tts.synthesize(rep, *args, self.mcfg, dtype) for rep, args in shards]
+                    for out in outs:
+                        out["total_samples"].cpu()
                     self.stats["compiles"] += 1
                 logger.info("warmup batch %d bucket %d: %.2f s", batch, bucket, time.time() - t0)
             stride = self.ecfg.stream_chunk_frames
@@ -309,6 +338,8 @@ class TTSEngine:
         if b > batch_bucket:
             logger.warning("batch %d exceeds the largest bucket %d", b, batch_bucket)
             batch_bucket = b
+        if self._dp is not None:
+            batch_bucket = self._dp.round_batch(batch_bucket)
 
         tokens = np.zeros((batch_bucket, bucket), np.int32)
         tokens[:b] = tokens_np
@@ -324,11 +355,13 @@ class TTSEngine:
             exagg[:b] = np.asarray(exaggerations, np.float32)
 
         dtype = self.compute_dtype
+        # Every shard is enqueued before any is read back, so the devices overlap.
         with self._device_section(), self.timers.track("synth_batch_device"), torch.inference_mode():
-            args = self._tensors(tokens, mask, spk, exagg)
+            shards = self._shards(tokens, mask, spk, exagg)
             if self.two_stage_enabled:
-                e = tts.encode_acoustic(self.params, *args, self.mcfg, dtype)
-                total_frames = e["total_frames"].cpu().numpy()  # the one [B] readback
+                encs = [tts.encode_acoustic(rep, *args, self.mcfg, dtype) for rep, args in shards]
+                # The one [B] readback; the frame bucket covers the whole batch.
+                total_frames = np.concatenate([e["total_frames"].cpu().numpy() for e in encs])
                 t_full = int(bucket * self.mcfg.max_frames_per_token)
                 need = int(total_frames.max()) + self.ecfg.stream_context_frames
                 fb = min((x for x in self.ecfg.vocode_frame_buckets if x >= need), default=t_full)
@@ -336,19 +369,23 @@ class TTSEngine:
                 if (batch_bucket, bucket, fb) not in self._vocode_shapes_seen:
                     self._vocode_shapes_seen.add((batch_bucket, bucket, fb))
                     self.stats["compiles"] += 1
-                out = tts.decode_vocode(
-                    self.params, e["enc"], e["spk"], e["durations"], args[1], fb, self.mcfg,
-                    dtype, local_attention_from=t_full,
-                )
-                audio = self._unpack(self._pack(out["audio"]))
+                packed = [
+                    self._pack(tts.decode_vocode(
+                        rep, e["enc"], e["spk"], e["durations"], args[1], fb, self.mcfg,
+                        dtype, local_attention_from=t_full,
+                    )["audio"])
+                    for (rep, args), e in zip(shards, encs)
+                ]
+                audio = np.concatenate([self._unpack(a) for a in packed])
                 total = total_frames * self.hop
                 with self._stats_lock:
                     self.stats["vocode_frames_executed"] += int(fb * batch_bucket)
                     self.stats["vocode_frames_worstcase"] += int(t_full * batch_bucket)
             else:
-                out = tts.synthesize(self.params, *args, self.mcfg, dtype)
-                audio = self._unpack(self._pack(out["audio"]))
-                total = out["total_samples"].cpu().numpy()
+                outs = [tts.synthesize(rep, *args, self.mcfg, dtype) for rep, args in shards]
+                packed = [(self._pack(o["audio"]), o["total_samples"]) for o in outs]
+                audio = np.concatenate([self._unpack(a) for a, _ in packed])
+                total = np.concatenate([t.cpu().numpy() for _, t in packed])
 
         results = [audio[i, : int(total[i])].astype(np.float32) for i in range(b)]
         dt = time.time() - t0
@@ -482,4 +519,5 @@ class TTSEngine:
 
     def cleanup(self) -> None:
         self.params = None
+        self.replicas = []
         self.is_loaded = False

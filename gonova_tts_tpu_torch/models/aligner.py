@@ -12,7 +12,8 @@ for the duration predictor and the length regulator.
 Both recursions are loops over the frame axis with the token axis vectorized
 ([B, L] a step), as the JAX `lax.scan`s are; autograd runs through the
 forward sum. Padding scores are the finite `_NEG_INF`, never -inf: `logaddexp`
-of two true -inf has a NaN gradient.
+of two true -inf has a NaN gradient. The two losses' batch reductions go through
+`tp.global_sum`, so under the sharded step they are the whole batch's.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from ..config import ModelConfig
+from ..parallel.tp import global_mean, global_sum
 from . import layers
 from .layers import Tree
 
@@ -141,7 +143,7 @@ def forward_sum_loss(
     for t in range(1, t_max):
         alpha = log_p[:, t] + torch.logaddexp(alpha, _shift_right(alpha))
     final = (alpha * _one_hot(l_valid - 1, l_max)).sum(-1)
-    return torch.mean(-final / torch.clamp(t_valid.float(), min=1.0))
+    return global_mean(-final / torch.clamp(t_valid.float(), min=1.0))
 
 
 def mas_durations(
@@ -192,8 +194,8 @@ def bin_loss(
     """-mean log p along the hard path (RAD-TTS' binarization term)."""
     token_idx = _token_index(durations, log_p.shape[1])
     onpath = torch.gather(log_p, 2, token_idx[:, :, None])[..., 0]
-    denom = torch.clamp(frame_mask.sum(), min=1.0)
-    return -(onpath * frame_mask).sum() / denom
+    denom = torch.clamp(global_sum(frame_mask.sum()), min=1.0)
+    return -global_sum((onpath * frame_mask).sum()) / denom
 
 
 def token_pitch(

@@ -8,6 +8,14 @@ also takes a plain nested dict of tensors. Layouts are the JAX ones: activations
 
 Initializers take an explicit `torch.Generator`; their distributions mirror the
 JAX initializers (the numbers differ: parity tests load one JAX tree into both).
+
+Tensor parallelism: a parameter sharded over the mesh's 'model' axis
+(`parallel/mesh.py::shard_params`) holds its rank's block and its split dimension
+(`tp.split_dim`). `dense` and `conv1d` then run column-parallel (output columns
+split: this rank's block of the output) or row-parallel (input split: partial
+products all-reduced, the replicated bias added after), `embedding` gathers the
+model dimension after the lookup, and attention runs this rank's whole heads. With
+no sharded parameter every function is the plain one.
 """
 
 from __future__ import annotations
@@ -19,6 +27,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..parallel import tp
 
 NEG = -1e9
 
@@ -83,11 +93,22 @@ def embedding_init(g: torch.Generator, vocab: int, dim: int) -> Tree:
 
 
 def dense(p: Mapping, x: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
-    return x.to(dtype) @ p["w"].to(dtype) + p["b"].to(dtype)
+    """x @ w + b. Column-parallel w (split on out): this rank's output columns;
+    row-parallel w (split on in): x holds this rank's input columns."""
+    w = p["w"]
+    split = tp.split_dim(w)
+    if split == 1:
+        x = tp.copy(x)
+    y = x.to(dtype) @ w.to(dtype)
+    if split == 0:
+        y = tp.reduce(y)
+    return y + p["b"].to(dtype)
 
 
 def embedding(p: Mapping, ids: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
-    return p["table"].to(dtype)[ids]
+    table = p["table"]
+    y = table.to(dtype)[ids]
+    return tp.gather(y) if tp.split_dim(table) is not None else y
 
 
 def layernorm(p: Mapping, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -100,10 +121,15 @@ def layernorm(p: Mapping, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
 
 def conv1d(
     p: Mapping, x: torch.Tensor, stride: int = 1, dtype=torch.float32, groups: int = 1,
-    dilation: int = 1,
+    dilation: int = 1, keep_split: bool = False,
 ) -> torch.Tensor:
     """SAME conv. x: [B, T, C_in] → [B, ceil(T / stride), C_out]; weight
     [k, C_in//groups, C_out].
+
+    Tensor parallel: a weight split on out-channels computes this rank's channels
+    and gathers them (this rank's block only with `keep_split`, for a following
+    row-parallel conv); a weight split on in-channels takes x's block of channels
+    and all-reduces the partial sums before the bias.
 
     SAME padding is the JAX/XLA rule over the dilated kernel k_eff = (k - 1) *
     dilation + 1: total = max((ceil(T / stride) - 1) * stride + k_eff - T, 0), the
@@ -111,18 +137,49 @@ def conv1d(
     dilation 3 pads (k-1)*3 // 2 on the left, not (k//2 - 1) * 3); for stride 2 it
     depends on T's parity (k=5: (1, 2) for even T, (2, 2) for odd), so the pad is
     explicit."""
-    k = p["w"].shape[0]
+    split = tp.split_dim(p["w"])
+    if split == 2:
+        x, groups = _out_split_input(tp.copy(x), p["w"].shape[1], groups)
+        y = _conv1d(p["w"], x, stride, dtype, groups, dilation) + p["b"].to(dtype)
+        return y if keep_split else tp.gather(y)
+    y = _conv1d(p["w"], x, stride, dtype, groups, dilation)
+    if split == 1:
+        if groups != 1:
+            raise ValueError("an in-channel split needs an ungrouped conv")
+        y = tp.reduce(y)
+    return y + p["b"].to(dtype)
+
+
+def _out_split_input(x: torch.Tensor, cin_group: int, groups: int):
+    """(the input channels this rank's block of output channels reads, its group
+    count). Ungrouped: all of them. Grouped: the whole groups the block covers when
+    the rank count divides the groups, else the one group the block lies in."""
+    if groups == 1:
+        return x, 1
+    n, r = tp.model_size(), tp.model_rank()
+    if groups % n == 0:
+        per = groups // n
+        return x[..., r * per * cin_group : (r + 1) * per * cin_group], per
+    if n % groups == 0:
+        g = r // (n // groups)
+        return x[..., g * cin_group : (g + 1) * cin_group], 1
+    raise ValueError(f"{groups} conv groups cannot be split over {n} model ranks")
+
+
+def _conv1d(w: torch.Tensor, x: torch.Tensor, stride: int, dtype, groups: int, dilation: int) -> torch.Tensor:
+    """The SAME correlation of `conv1d`, without the bias."""
+    k = w.shape[0]
     k_eff = (k - 1) * dilation + 1
     t = x.shape[1]
     total = max((-(-t // stride) - 1) * stride + k_eff - t, 0)
     lo = total // 2
-    w = p["w"].to(dtype).permute(2, 1, 0)  # [C_out, C_in/groups, k]
+    w = w.to(dtype).permute(2, 1, 0)  # [C_out, C_in/groups, k]
     xt = x.to(dtype).transpose(1, 2)
     if total == 2 * lo:  # symmetric: the conv pads, no copy
         y = F.conv1d(xt, w, stride=stride, padding=lo, groups=groups, dilation=dilation)
     else:
         y = F.conv1d(F.pad(xt, (lo, total - lo)), w, stride=stride, groups=groups, dilation=dilation)
-    return y.transpose(1, 2) + p["b"].to(dtype)
+    return y.transpose(1, 2)
 
 
 def conv1d_transpose(p: Mapping, x: torch.Tensor, stride: int, dtype=torch.float32) -> torch.Tensor:
@@ -166,18 +223,29 @@ def mha(
     p: Mapping, x: torch.Tensor, n_heads: int, mask: Optional[torch.Tensor] = None,
     dtype=torch.float32,
 ) -> torch.Tensor:
-    """Self-attention. x: [B, T, D]; mask: [B, T] (1 = valid), a -1e9 key bias."""
+    """Self-attention. x: [B, T, D]; mask: [B, T] (1 = valid), a -1e9 key bias.
+    With q/k/v split over 'model' this rank runs its whole heads (n_heads / n_model)."""
     b, t, d = x.shape
     dh = d // n_heads
-    q = dense(p["q"], x, dtype).reshape(b, t, n_heads, dh)
-    k = dense(p["k"], x, dtype).reshape(b, t, n_heads, dh)
-    v = dense(p["v"], x, dtype).reshape(b, t, n_heads, dh)
+    q, k, v, whole_heads = _qkv(p, x, dtype, dh)
+    q, k, v = (a.reshape(b, t, -1, dh) for a in (q, k, v))
     logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) / math.sqrt(dh)
     if mask is not None:
         logits = logits + torch.where(mask[:, None, None, :] != 0, 0.0, NEG)
     attn = torch.softmax(logits, dim=-1).to(dtype)
-    out = torch.einsum("bhqk,bkhd->bqhd", attn, v)
-    return dense(p["o"], out.reshape(b, t, d), dtype)
+    out = torch.einsum("bhqk,bkhd->bqhd", attn, v).reshape(b, t, -1)
+    return dense(p["o"], out if whole_heads else tp.scatter(out), dtype)
+
+
+def _qkv(p: Mapping, x: torch.Tensor, dtype, dh: int):
+    """(q, k, v, whole_heads). Column-parallel projections give this rank's block of
+    columns; when that block is not a whole number of heads (n_heads not a multiple
+    of the model ranks) they are gathered, attention runs every head, and the caller
+    scatters its output back to the block the row-parallel `o` reads."""
+    q, k, v = (dense(p[n], x, dtype) for n in ("q", "k", "v"))
+    if tp.split_dim(p["q"]["w"]) is None or q.shape[-1] % dh == 0:
+        return q, k, v, True
+    return tp.gather(q), tp.gather(k), tp.gather(v), False
 
 
 def with_neighbors(arr: torch.Tensor) -> torch.Tensor:
@@ -204,16 +272,17 @@ def local_mha(
         raise ValueError(f"T={t} must be a multiple of window={window}")
     dh = d // n_heads
     nb = t // window
-    q = dense(p["q"], x, dtype).reshape(b, nb, window, n_heads, dh)
-    k = with_neighbors(dense(p["k"], x, dtype).reshape(b, nb, window, n_heads, dh))
-    v = with_neighbors(dense(p["v"], x, dtype).reshape(b, nb, window, n_heads, dh))
+    q, k, v, whole_heads = _qkv(p, x, dtype, dh)
+    q = q.reshape(b, nb, window, -1, dh)
+    k = with_neighbors(k.reshape(b, nb, window, -1, dh))
+    v = with_neighbors(v.reshape(b, nb, window, -1, dh))
     logits = torch.einsum("bnqhd,bnkhd->bnhqk", q.float(), k.float()) / math.sqrt(dh)
     key_mask = torch.ones((b, t), device=x.device) if mask is None else mask.float()
     km = with_neighbors(key_mask.reshape(b, nb, window))  # [B, nb, 3w]
     logits = logits + torch.where(km[:, :, None, None, :] != 0, 0.0, NEG)
     attn = torch.softmax(logits, dim=-1).to(dtype)
-    out = torch.einsum("bnhqk,bnkhd->bnqhd", attn, v)
-    return dense(p["o"], out.reshape(b, t, d), dtype)
+    out = torch.einsum("bnhqk,bnkhd->bnqhd", attn, v).reshape(b, t, -1)
+    return dense(p["o"], out if whole_heads else tp.scatter(out), dtype)
 
 
 # ---------------------------------------------------------------- transformer block
@@ -252,7 +321,7 @@ def transformer_block(
     if mask_f is not None:
         h = h * mask_f
     y = layernorm(p["ln2"], h)
-    y = torch.relu(conv1d(p["ff1"], y, dtype=dtype))
+    y = torch.relu(conv1d(p["ff1"], y, dtype=dtype, keep_split=True))
     y = conv1d(p["ff2"], y, dtype=dtype)
     out = h + y
     if mask_f is not None:

@@ -8,11 +8,13 @@ All stale sources compile at once, one nvcc process each, on the first call of a
 kernel (or of `build_all`). A library is stale when it is missing or older than a
 file in `csrc/`. The C functions take pointers as `c_void_p`, the current CUDA
 stream last, and return `cudaGetLastError()`; `check` turns a non-zero code into
-an exception. Nothing here runs at import time: the CPU tests import every module.
+an exception; every call runs under `launch_on(tensor.device)`. Nothing here runs
+at import time: the CPU tests import every module.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import glob
 import os
@@ -117,7 +119,14 @@ def ptr(t) -> ctypes.c_void_p:
     return ctypes.c_void_p(t.data_ptr())
 
 
-def stream_ptr(device) -> ctypes.c_void_p:
+@contextlib.contextmanager
+def launch_on(device):
+    """Make `device` the current CUDA device for a launch and yield its current
+    stream. The runtime launches on the current device, whatever the tensors'
+    device: a tensor on cuda:1 launched while cuda:0 is current fails with an
+    invalid handle, and a per-device attribute (the shared-memory opt-in) would be
+    set on the wrong card."""
     import torch
 
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+    with torch.cuda.device(device):
+        yield ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)

@@ -129,11 +129,12 @@ def _launch(x, dw, dw_b, ln_g, ln_b, w1, b1, w2, b2, gamma, eps, bf16):
     normed = torch.empty((b * t, c), dtype=md, device=x.device)
     h = torch.empty((b * t, f), dtype=md, device=x.device)
     p = _build.ptr
-    rc = lib.convnext_block_forward(
-        _DTYPE_CODE[x.dtype], _DTYPE_CODE[md], b, t, c, f, float(eps), p(x), p(out),
-        *(p(v) for v in (dw, dw_b, ln_g, ln_b, w1, b1, w2, b2, gamma)),
-        p(normed), p(h), plans, None if ws is None else p(ws), _build.stream_ptr(x.device),
-    )
+    with _build.launch_on(x.device) as stream:
+        rc = lib.convnext_block_forward(
+            _DTYPE_CODE[x.dtype], _DTYPE_CODE[md], b, t, c, f, float(eps), p(x), p(out),
+            *(p(v) for v in (dw, dw_b, ln_g, ln_b, w1, b1, w2, b2, gamma)),
+            p(normed), p(h), plans, None if ws is None else p(ws), stream,
+        )
     _build.check(lib, rc, "convnext_block kernel")
     _COUNT.count += 1
     return out

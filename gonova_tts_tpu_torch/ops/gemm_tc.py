@@ -202,10 +202,11 @@ def gemm_tc(a, w, epi, bias, resid=None, mask=None, gamma=None, taps: int = 1, w
     mask_c = None if mask is None else mask.float().contiguous()
     gamma_c = None if gamma is None else gamma.float().contiguous()
     p = lambda x: None if x is None else _build.ptr(x)  # noqa: E731
-    rc = lib.gemm_tc_forward(
-        seqs, rows, cin, taps, n, epi, int(od == torch.float32), wgs, bn, split, p(a_c), p(wt), p(out), p(bias_c),
-        p(resid_c), p(mask_c), p(gamma_c), p(ws), _build.stream_ptr(a.device),
-    )
+    with _build.launch_on(a.device) as stream:
+        rc = lib.gemm_tc_forward(
+            seqs, rows, cin, taps, n, epi, int(od == torch.float32), wgs, bn, split, p(a_c), p(wt), p(out), p(bias_c),
+            p(resid_c), p(mask_c), p(gamma_c), p(ws), stream,
+        )
     _build.check(lib, rc, "gemm_tc kernel")
     _COUNT.count += 1
     return out

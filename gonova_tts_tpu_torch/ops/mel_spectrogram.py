@@ -203,10 +203,11 @@ def _launch(x, sr, n_fft, hop_length, win_length, n_mels, fmin, fmax, eps):
         fb = _filterbank(sr, n_fft, n_mels, fmin, fmax, x.device)
         band = _bands(sr, n_fft, n_mels, fmin, fmax, x.device)
         p = _build.ptr
-        rc = lib.mel_spectrogram_forward(
-            b, t, n_frames, hop_length, n_fft, n_bins, n_mels, float(eps),
-            p(x), p(bases), p(fb), p(band), p(out), _build.stream_ptr(x.device),
-        )
+        with _build.launch_on(x.device) as stream:
+            rc = lib.mel_spectrogram_forward(
+                b, t, n_frames, hop_length, n_fft, n_bins, n_mels, float(eps),
+                p(x), p(bases), p(fb), p(band), p(out), stream,
+            )
         _build.check(lib, rc, "mel_spectrogram kernel")
         _COUNT.count += 1
     return out[0] if squeeze else out

@@ -196,15 +196,15 @@ def _launch(x, mask, packed, n_heads, window, bf16):
     if bf16:  # the [N, K] weights, each product's tile and split, the split's workspace
         weights = {**packed, **{k: packed[k + "_t"] for k in ("wqkv", "wo", "w1", "w2")}}
         plans, ws = gemm_tc.plan_args(tc_plans(b, t, d, f), m, (3 * d, d, f, d), x.device)
-    rc = lib.transformer_stack_forward(
-        int(bf16), b, t, d, n_heads, f, n_layers, window if local else 0, p(maskf), p(act),
-        *(p(weights[k]) for k in (
-            "ln1_g", "ln1_b", "ln2_g", "ln2_b", "wqkv", "bqkv", "wo", "bo",
-            "w1", "b1", "w2", "b2", "lno_g", "lno_b",
-        )),
-        p(normed), p(qkv), p(att), p(hres), p(h1), p(out), plans, None if ws is None else p(ws),
-        _build.stream_ptr(x.device),
-    )
+    with _build.launch_on(x.device) as stream:
+        rc = lib.transformer_stack_forward(
+            int(bf16), b, t, d, n_heads, f, n_layers, window if local else 0, p(maskf), p(act),
+            *(p(weights[k]) for k in (
+                "ln1_g", "ln1_b", "ln2_g", "ln2_b", "wqkv", "bqkv", "wo", "bo",
+                "w1", "b1", "w2", "b2", "lno_g", "lno_b",
+            )),
+            p(normed), p(qkv), p(att), p(hres), p(h1), p(out), plans, None if ws is None else p(ws), stream,
+        )
     _build.check(lib, rc, "transformer_stack kernel")
     _COUNT.count += 1
     return out

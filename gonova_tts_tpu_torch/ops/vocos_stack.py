@@ -118,11 +118,12 @@ def _launch(x, packed, bf16):
     if bf16:  # the [N, K] weights, both products' tile and split, the split's workspace
         weights = {**packed, "w1": packed["w1_t"], "w2": packed["w2_t"]}
         plans, ws = gemm_tc.plan_args(tc_plans(b, t, c, f), b * t, (f, c), x.device)
-    rc = lib.vocos_stack_forward(
-        int(bf16), b, t, c, f, n_layers, p(act),
-        *(p(weights[k]) for k in ("dw", "dw_b", "ln_g", "ln_b", "w1", "b1", "w2", "b2", "gamma")),
-        p(normed), p(h), plans, None if ws is None else p(ws), _build.stream_ptr(x.device),
-    )
+    with _build.launch_on(x.device) as stream:
+        rc = lib.vocos_stack_forward(
+            int(bf16), b, t, c, f, n_layers, p(act),
+            *(p(weights[k]) for k in ("dw", "dw_b", "ln_g", "ln_b", "w1", "b1", "w2", "b2", "gamma")),
+            p(normed), p(h), plans, None if ws is None else p(ws), stream,
+        )
     _build.check(lib, rc, "vocos_stack kernel")
     _COUNT.count += 1
     return act

@@ -1,13 +1,20 @@
 """The training loop: dataset → train step → EMA checkpoints + metric logs.
 
-Counterpart of `gonova_tts_tpu/train/loop.py` for one device: the joint phase and,
-with `gan=True`, the adversarial vocoder phase after it. Entry points:
-`gonova-tts-torch train` (cli.py) or `python -m gonova_tts_tpu_torch.train.loop`.
-It runs on CUDA unless the caller passes `device="cpu"`.
+Counterpart of `gonova_tts_tpu/train/loop.py`: the joint phase and, with
+`gan=True`, the adversarial vocoder phase after it, on one device or sharded over
+a ('data', 'model') mesh. Entry points: `gonova-tts-torch train` (cli.py) or
+`python -m gonova_tts_tpu_torch.train.loop`. It runs on CUDA unless the caller
+passes `device="cpu"`.
 
-Not ported yet, and refused rather than dropped (ROADMAP.md, Open items §1):
-sharded training (`n_data > 1`, `n_model > 1`, a multi-process launch: the
-parallel item).
+Sharding (`n_data > 1`, `n_model > 1`, or a multi-host launch under the
+TTS_COORDINATOR / TTS_NUM_PROCESSES / TTS_PROCESS_ID contract of
+`parallel/mesh.py::init_distributed`) runs one worker process per device: called
+from a plain process, `train` starts them itself (`parallel/launch.py`: NCCL on
+CUDA, gloo on the CPU, a `file://` store on one host), each worker runs `train`
+inside the process group, and the call returns rank 0's metrics (every rank's are
+the global batch's). On the CPU each worker process is one mesh position, whatever
+the core count. Rank 0 gathers the parameters' blocks and writes the same f32
+checkpoints as one device does.
 """
 
 from __future__ import annotations
@@ -19,10 +26,14 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..config import Config, load_config
 from ..device import resolve_device
+from ..engine import multi
 from ..models import layers, tts, vocoder
+from ..parallel import launch
+from ..parallel import mesh as pmesh
 from ..utils import get_logger
 from . import step as tstep
 from .checkpoint import save_params
@@ -65,13 +76,26 @@ def make_speaker_fn(params, mcfg):
     return speaker_fn
 
 
-def _refuse_unported(n_data: Optional[int], n_model: int) -> None:
-    multi_process = bool(os.environ.get("TTS_COORDINATOR")) or int(os.environ.get("WORLD_SIZE", "1")) > 1
-    if (n_data or 0) > 1 or n_model > 1 or multi_process:
-        raise NotImplementedError(
-            f"n_data={n_data}, n_model={n_model}, multi-process={multi_process}: sharded "
-            "training is not ported yet (ROADMAP.md, Open items §1, the parallel item)"
-        )
+def _launch_workers(args: dict, dev: torch.device) -> dict:
+    """Run `train(**args)` in this host's workers, one per mesh position, inside one
+    process group; returns the metrics of this host's first worker.
+
+    Multi-host (TTS_COORDINATOR set): one worker per local device, joining the
+    coordinator (`init_distributed`). One host: n_data x n_model workers, `n_data`
+    None resolved as `make_mesh` resolves it, over `multi.local_devices`; on the CPU
+    an explicit `n_data` is not bounded by them (each worker process is a position)."""
+    devices = multi.local_devices(dev)
+    if os.environ.get("TTS_COORDINATOR"):
+        return launch.spawn(_train_worker, len(devices), dev.type, args, multi_host=True)[0]
+    n_data, n_model = args["n_data"], args["n_model"]
+    if dev.type == "cpu" and n_data is not None:
+        devices = [dev] * (n_data * n_model)
+    n_data, n_model = pmesh.mesh_shape(n_data, n_model, len(devices))
+    return launch.spawn(_train_worker, n_data * n_model, dev.type, {**args, "n_data": n_data})[0]
+
+
+def _train_worker(args: dict) -> dict:
+    return train(**args)
 
 
 def train(
@@ -111,12 +135,32 @@ def train(
     `gan_steps` (default `steps`) d/g pairs at `gan_lr`: the joint EMA is saved at
     `steps` first (the baseline the phase is graded against), only the vocoder
     trains, and its debiased EMA replaces the vocoder in the checkpoint at
-    `steps + gan_steps`. `device` defaults to `config.model.device`."""
-    _refuse_unported(n_data, n_model)
+    `steps + gan_steps`. `device` defaults to `config.model.device`.
+
+    `n_data`/`n_model` > 1 or a multi-host launch shard both phases over a mesh
+    (the module docstring); `resident` is single-device and refuses them."""
+    args = dict(locals())
     if gan and not manifest:
         raise ValueError("adversarial training needs a manifest corpus")
+    distributed = bool(os.environ.get("TTS_COORDINATOR")) or dist.is_initialized()
+    use_mesh = (n_data or 0) > 1 or n_model > 1 or distributed
+    if resident and use_mesh:
+        # Never silently drop requested parallelism: the resident chunk runner is
+        # single-device by construction.
+        raise ValueError(
+            "resident mode is single-device; drop --resident to train with "
+            f"n_data={n_data}/n_model={n_model} sharding"
+        )
     config = config or load_config()
     dev = resolve_device(device if device is not None else config.model.device)
+    if use_mesh and not dist.is_initialized():
+        return _launch_workers(args, dev)
+    mesh = None
+    if use_mesh:
+        multi_host = pmesh.n_hosts() > 1
+        mesh = pmesh.make_hybrid_mesh(n_model=n_model) if multi_host else pmesh.make_mesh(n_data, n_model)
+        dev = pmesh.rank_device()
+    lead = mesh is None or dist.get_rank() == 0  # logs, history, checkpoints
     # Training runs the plain layers: the kernels have no backward.
     mcfg = config.model.model_copy(update={"acoustic_pallas": False, "vocos_pallas": False})
     if resident and steps % chunk != 0:
@@ -178,13 +222,15 @@ def train(
                 yield synthetic
 
     history = None
-    if history_path:
+    if history_path and lead:
         os.makedirs(os.path.dirname(os.path.abspath(history_path)), exist_ok=True)
         history = open(history_path, "a")
 
     def log_point(step_no, metrics, t0):
         vals = {k: round(float(v), 5) for k, v in metrics.items()}
         elapsed = time.perf_counter() - t0
+        if not lead:
+            return
         logger.info(
             "train_step", step=step_no, total=vals["total"], mel=vals["ac_mel"],
             stft=vals["stft"], steps_per_sec=round(step_no / elapsed, 2), elapsed_s=elapsed,
@@ -193,9 +239,16 @@ def train(
             history.write(json.dumps({"step": step_no, **vals}) + "\n")
             history.flush()
 
+    split_dims = {}  # a sharded state's {name: split dimension}
+
     def save(snap, n_updates, kind="ema"):
-        path = save_params(checkpoint_dir, _serve_params(snap), step=n_updates)
-        logger.info("checkpoint_saved", path=path, kind=kind)
+        if mesh is not None:  # every rank gathers (collective); rank 0 writes
+            snap = pmesh.gather_params(snap, split_dims)
+        if lead:
+            path = save_params(checkpoint_dir, _serve_params(snap), step=n_updates)
+            logger.info("checkpoint_saved", path=path, kind=kind)
+        if mesh is not None:
+            dist.barrier()
 
     try:
         metrics = {}
@@ -225,7 +278,15 @@ def train(
                 if checkpoint_dir and done % checkpoint_every < chunk and done < steps:
                     save(tstep.ema_debias(ema, ema_decay, done), done)
         else:
-            step_fn = tstep.make_train_step(mcfg, learn_alignment=learn_alignment)
+            if mesh is not None:
+                example = next(iter(batches()))
+                step_fn, state = tstep.make_sharded_train_step(
+                    mcfg, optimizer, mesh, state, example, learn_alignment=learn_alignment
+                )
+                split_dims = pmesh.split_dims(state.params)
+                logger.info("train_sharded", mesh=list(mesh.shape), rank=dist.get_rank())
+            else:
+                step_fn = tstep.make_train_step(mcfg, learn_alignment=learn_alignment)
             ema = tstep.ema_init_zeros(state.params)
             t0 = time.perf_counter()
             for i, batch in enumerate(batches()):
@@ -253,7 +314,7 @@ def train(
                 save(ema, steps, kind="ema_pre_gan")
             gm = _gan_phase(
                 state, mcfg, n_gan, gan_lr, seed, ema_decay, chunk,
-                epoch_batches if resident else None, batches, dev, history, ema,
+                epoch_batches if resident else None, batches, dev, history, ema, mesh,
             )
             metrics.update({f"gan_{k}": float(v) for k, v in gm.items()})
         if checkpoint_dir:
@@ -264,29 +325,45 @@ def train(
     return metrics
 
 
-def _gan_phase(state, mcfg, n_gan, gan_lr, seed, ema_decay, chunk, epoch_batches, batches, dev, history, ema):
+def _gan_phase(
+    state, mcfg, n_gan, gan_lr, seed, ema_decay, chunk, epoch_batches, batches, dev, history, ema, mesh=None,
+):
     """`n_gan` discriminator/generator step pairs on the trained vocoder; its
     debiased EMA replaces `ema`'s vocoder entries in place. Resident when
-    `epoch_batches` is given (`chunk` pairs a call), else per step from `batches()`.
-    Returns the last logged metrics (chunk means when resident)."""
+    `epoch_batches` is given (`chunk` pairs a call), else per step from `batches()`,
+    sharded over `mesh` when there is one. Returns the last logged metrics (chunk
+    means when resident)."""
     opt = dict(lr=gan_lr, warmup=min(200, max(n_gan // 10, 1)), decay_steps=max(n_gan, 2))
+    g_opt, d_opt = tstep.make_optimizer(**opt), tstep.make_optimizer(**opt)
     # The generator is the trained vocoder subtree only: the acoustic and speaker
     # weights get no adversarial gradient, and AdamW's decay would erode them.
-    gen_state = tstep.init_state(layers.group(vocoder=state.params.vocoder), tstep.make_optimizer(**opt))
+    gen_state = tstep.init_state(layers.group(vocoder=state.params.vocoder), g_opt)
     critics = vocoder.discriminators_init(
         torch.Generator().manual_seed(seed + 101), torch.Generator().manual_seed(seed + 102),
         width=mcfg.disc_width,
     ).to(dev)
-    disc_state = tstep.init_state(critics, tstep.make_optimizer(**opt))
-    logger.info("gan_phase_start", steps=n_gan, lr=gan_lr)
+    disc_state = tstep.init_state(critics, d_opt)
+    lead = mesh is None or dist.get_rank() == 0
+    if lead:
+        logger.info("gan_phase_start", steps=n_gan, lr=gan_lr)
 
     def log_gan(step_no, gm, t0):
         vals = {k: round(float(v), 5) for k, v in gm.items()}
+        if not lead:
+            return
         logger.info("gan_step", step=step_no, elapsed_s=time.perf_counter() - t0, **vals)
         if history:
             history.write(json.dumps({"phase": "gan", "step": step_no, **vals}) + "\n")
             history.flush()
 
+    if mesh is not None:
+        # The adversarial phase shards over the mesh too: never silently drop
+        # requested parallelism.
+        d_step, g_step, gen_state, disc_state = tstep.make_sharded_gan_steps(
+            mcfg, g_opt, d_opt, mesh, gen_state, disc_state
+        )
+    elif epoch_batches is None:
+        d_step, g_step = tstep.make_gan_steps(mcfg)
     ema_voc = tstep.ema_init_zeros(gen_state.params)
     gm = {}
     t0 = time.perf_counter()
@@ -300,7 +377,6 @@ def _gan_phase(state, mcfg, n_gan, gan_lr, seed, ema_decay, chunk, epoch_batches
             done += chunk
             log_gan(done, gm, t0)
     else:
-        d_step, g_step = tstep.make_gan_steps(mcfg)
         for i, batch in enumerate(batches()):
             if i >= n_gan:
                 break

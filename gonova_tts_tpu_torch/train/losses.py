@@ -5,6 +5,14 @@ objectives as plain functions on tensors, differentiable under autograd. The
 multi-resolution STFT loss is also the vocoder term of the bf16 parity gate
 (`parity_gpu.py`). The mel-reconstruction loss takes the plain log-mel
 (`audio.mel.mel_spectrogram`), never the fused mel kernel, which has no backward.
+
+Every sum, mean and norm over the batch goes through `tp.global_sum`: under a
+'data' group (`tp.data_parallel`, the sharded steps) each rank holds a block of
+the batch's rows, and a masked mean divides by the global denominator (the mask
+sums all-reduced first, the clamp applied to the global sum), so every rank
+computes the loss of the whole batch, as the JAX package's sharded step does. A
+mean of per-shard means would be another loss once the masks differ between
+shards. Without a group these are the one-device losses.
 """
 
 from __future__ import annotations
@@ -15,18 +23,19 @@ import torch
 
 from ..audio.mel import mel_spectrogram
 from ..audio.stft import spectrogram
+from ..parallel.tp import global_mean, global_sum
 
 
 def masked_l1(pred: torch.Tensor, target: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """Mean |pred - target| over valid frames. mask: [B, T], inputs [B, T, C]."""
     m = mask[..., None]
-    denom = torch.clamp(m.sum() * pred.shape[-1], min=1.0)
-    return (torch.abs(pred - target) * m).sum() / denom
+    denom = torch.clamp(global_sum(m.sum()) * pred.shape[-1], min=1.0)
+    return global_sum((torch.abs(pred - target) * m).sum()) / denom
 
 
 def masked_mse(pred: torch.Tensor, target: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    denom = torch.clamp(mask.sum(), min=1.0)
-    return (((pred - target) ** 2) * mask).sum() / denom
+    denom = torch.clamp(global_sum(mask.sum()), min=1.0)
+    return global_sum((((pred - target) ** 2) * mask).sum()) / denom
 
 
 def duration_loss(log_dur_pred: torch.Tensor, dur_target: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
@@ -60,8 +69,10 @@ def multi_resolution_stft_loss(pred: torch.Tensor, target: torch.Tensor) -> torc
     for n_fft, hop, win in _MRSTFT_CONFIGS:
         sp = spectrogram(pred, n_fft, hop, win)
         st = spectrogram(target, n_fft, hop, win)
-        sc = torch.linalg.vector_norm(st - sp) / torch.clamp(torch.linalg.vector_norm(st), min=1e-6)
-        lm = torch.mean(torch.abs(torch.log(torch.clamp(sp, min=1e-5)) - torch.log(torch.clamp(st, min=1e-5))))
+        sc = torch.sqrt(global_sum(((st - sp) ** 2).sum())) / torch.clamp(
+            torch.sqrt(global_sum((st * st).sum())), min=1e-6
+        )
+        lm = global_mean(torch.abs(torch.log(torch.clamp(sp, min=1e-5)) - torch.log(torch.clamp(st, min=1e-5))))
         total = total + sc + lm
     return total / len(_MRSTFT_CONFIGS)
 
@@ -86,7 +97,7 @@ def lsgan_discriminator_loss(real_outs: List, fake_outs: List) -> torch.Tensor:
     """HiFi-GAN eq(1): (D(x)-1)^2 + D(G(s))^2, summed over sub-discriminators."""
     loss = 0.0
     for (real_logits, _), (fake_logits, _) in zip(real_outs, fake_outs):
-        loss = loss + torch.mean((real_logits - 1.0) ** 2) + torch.mean(fake_logits**2)
+        loss = loss + global_mean((real_logits - 1.0) ** 2) + global_mean(fake_logits**2)
     return loss
 
 
@@ -94,7 +105,7 @@ def lsgan_generator_loss(fake_outs: List) -> torch.Tensor:
     """HiFi-GAN eq(2): (D(G(s))-1)^2."""
     loss = 0.0
     for fake_logits, _ in fake_outs:
-        loss = loss + torch.mean((fake_logits - 1.0) ** 2)
+        loss = loss + global_mean((fake_logits - 1.0) ** 2)
     return loss
 
 
@@ -105,5 +116,5 @@ def feature_matching_loss(real_outs: List, fake_outs: List) -> torch.Tensor:
     loss = 0.0
     for (_, real_feats), (_, fake_feats) in zip(real_outs, fake_outs):
         for rf, ff in zip(real_feats, fake_feats):
-            loss = loss + torch.mean(torch.abs(rf - ff))
+            loss = loss + global_mean(torch.abs(rf - ff))
     return loss

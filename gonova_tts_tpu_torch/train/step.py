@@ -1,10 +1,17 @@
 """Train steps: the joint TTS loss under autograd, optax's optimizer in torch.optim.
 
-Counterpart of `gonova_tts_tpu/train/step.py` for one device: the joint step and
-the adversarial (HiFi-GAN) phase's discriminator and generator steps. Steps run
-the plain PyTorch layers: the CUDA kernels of `ops/` (like the JAX package's
-Pallas kernels) have no backward, so a config with either kernel switch on is
-refused and a step launches no kernel.
+Counterpart of `gonova_tts_tpu/train/step.py`: the joint step and the adversarial
+(HiFi-GAN) phase's discriminator and generator steps, on one device or sharded
+over a ('data', 'model') mesh (`parallel/mesh.py`). Steps run the plain PyTorch
+layers: the CUDA kernels of `ops/` (like the JAX package's Pallas kernels) have no
+backward, so a config with either kernel switch on is refused and a step launches
+no kernel.
+
+Sharded, each rank is one process on one device. It takes its contiguous block of
+the global batch's rows, holds its block of every parameter the rules shard over
+'model' (the layers run tensor-parallel, `parallel/tp.py`), computes the global
+loss (the losses' batch reductions all-reduced over 'data') and sums the gradients
+over 'data' before the optimizer; AdamW's moments follow their parameters.
 
 The optimizer is the JAX package's `optax.chain(clip_by_global_norm(1.0),
 adamw(warmup_cosine_decay_schedule, b1=0.9, b2=0.98, weight_decay=0.01))`:
@@ -22,16 +29,20 @@ adamw(warmup_cosine_decay_schedule, b1=0.9, b2=0.98, weight_decay=0.01))`:
 from __future__ import annotations
 
 import math
+from contextlib import nullcontext
 from dataclasses import dataclass
 from typing import Any, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from ..config import ModelConfig
 from ..device import resolve_device
 from ..models import acoustic, aligner, layers, tts, vocoder
+from ..parallel import mesh as pmesh
+from ..parallel import tp
 from . import losses
 from ._jax_prng import crop_offset
 
@@ -88,13 +99,55 @@ class OptState:
         for p in self.params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
+        self.sync_grads()
+        self.apply()
+
+    def sync_grads(self) -> None:
+        """One device: the gradients are complete."""
+
+    def grad_norm(self, grads: List[torch.Tensor]) -> torch.Tensor:
+        return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+
+    def apply(self) -> None:
         grads = [p.grad for p in self.params]
-        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        norm = self.grad_norm(grads)
         max_norm = self.optimizer.max_norm
         scale = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
         torch._foreach_mul_(grads, scale)
         self.adamw.step()
         self.lr_schedule.step()
+
+
+class ShardedOptState(OptState):
+    """OptState of one rank of a mesh: the gradients summed over 'data' first, and
+    the clip's global norm over the whole model, each sharded leaf's squared norm
+    summed over 'model' and each replicated leaf counted once."""
+
+    def __init__(self, optimizer: Optimizer, params: List[nn.Parameter], mesh):
+        super().__init__(optimizer, params)
+        sizes = pmesh.axis_sizes(mesh)
+        self.n_data, self.n_model = sizes[pmesh.DATA_AXIS], sizes[pmesh.MODEL_AXIS]
+        self.data_group = mesh.get_group(pmesh.DATA_AXIS) if self.n_data > 1 else None
+        self.model_group = mesh.get_group(pmesh.MODEL_AXIS) if self.n_model > 1 else None
+
+    def sync_grads(self) -> None:
+        if self.n_data == 1:
+            return
+        grads = [p.grad for p in self.params]
+        flat = torch.cat([g.reshape(-1) for g in grads])
+        dist.all_reduce(flat, group=self.data_group)
+        torch._foreach_copy_(grads, [v.view_as(g) for v, g in zip(flat.split([g.numel() for g in grads]), grads)])
+
+    def grad_norm(self, grads: List[torch.Tensor]) -> torch.Tensor:
+        def squared(gs):
+            if not gs:
+                return torch.zeros((), device=grads[0].device)
+            return torch.stack(torch._foreach_norm(gs)).square().sum()
+
+        split = squared([g for p, g in zip(self.params, grads) if tp.split_dim(p) is not None])
+        if self.n_model > 1:
+            dist.all_reduce(split, group=self.model_group)
+        return torch.sqrt(split + squared([g for p, g in zip(self.params, grads) if tp.split_dim(p) is None]))
 
 
 def make_optimizer(
@@ -177,7 +230,8 @@ def tts_loss_fn(
         align_metrics = {
             "align_fs": l_fs,
             "align_bin": l_bin,
-            "dur_over_cap": over_cap.sum() / torch.clamp(real_tok.sum(), min=1.0),
+            "dur_over_cap": tp.global_sum(over_cap.sum().float())
+            / torch.clamp(tp.global_sum(real_tok.sum().float()), min=1.0),
         }
     else:
         durations = batch["durations"]
@@ -217,17 +271,88 @@ def make_train_step(cfg: ModelConfig, dtype=torch.float32, learn_alignment: bool
     _refuse_kernels(cfg)
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
-        state.opt_state.zero_grad()
-        loss, metrics = tts_loss_fn(
-            state.params, batch, cfg, dtype, learn_alignment, align_step=state.step
-        )
-        loss.backward()
-        state.opt_state.update()
-        layers.clear_derived(state.params)  # kernel-weight memos of the old parameters
-        state.step += 1
-        return state, {k: v.detach() for k, v in metrics.items()}
+        return _train_update(state, batch, cfg, dtype, learn_alignment)
 
     return train_step
+
+
+def _train_update(state: TrainState, batch, cfg, dtype, learn_alignment):
+    state.opt_state.zero_grad()
+    loss, metrics = tts_loss_fn(state.params, batch, cfg, dtype, learn_alignment, align_step=state.step)
+    loss.backward()
+    state.opt_state.update()
+    layers.clear_derived(state.params)  # kernel-weight memos of the old parameters
+    state.step += 1
+    return state, {k: v.detach() for k, v in metrics.items()}
+
+
+# ---------------------------------------------------------------- sharded steps
+
+
+def _state_shardings(state: TrainState, mesh) -> Dict[str, Tuple]:
+    """{parameter name: axis tuple} of the state's parameters, by the mesh rules.
+    AdamW's moments follow their parameters (`_place_state`), the step count and
+    the schedule are replicated. Keyed by name, as the JAX package matches the
+    moment trees by structure: same-shaped parameters can carry different specs."""
+    return pmesh.param_shardings(state.params, mesh)
+
+
+def _place_state(state: TrainState, mesh, optimizer: Optimizer) -> TrainState:
+    """The state on this rank: its blocks of the parameters (`shard_params`), a
+    ShardedOptState over them with each AdamW moment cut like its parameter, and
+    the schedule's count."""
+    model = pmesh.shard_params(state.params, mesh, specs=_state_shardings(state, mesh))
+    model.requires_grad_(True)
+    model.train()
+    opt_state = ShardedOptState(optimizer, list(model.parameters()), mesh)
+    old = state.opt_state
+    for p_old, p_new in zip(old.params, opt_state.params):
+        moments = old.adamw.state.get(p_old)
+        if not moments:
+            continue
+        dim = tp.split_dim(p_new)
+        cut = dim is not None and tp.split_dim(p_old) is None
+        opt_state.adamw.state[p_new] = {
+            k: (tp.own_slice(v, dim) if cut and v.ndim else v.clone()).to(p_new.device) for k, v in moments.items()
+        }
+    opt_state.lr_schedule.load_state_dict(old.lr_schedule.state_dict())
+    for g in opt_state.adamw.param_groups:
+        g["lr"] = old.adamw.param_groups[0]["lr"]
+    return TrainState(params=model, opt_state=opt_state, step=state.step)
+
+
+def _data_parallel(mesh):
+    """The context in which a rank's losses are the global batch's."""
+    n = pmesh.axis_sizes(mesh)[pmesh.DATA_AXIS]
+    if n == 1:
+        return nullcontext
+    group = mesh.get_group(pmesh.DATA_AXIS)
+    return lambda: tp.data_parallel(group, n)
+
+
+def make_sharded_train_step(
+    cfg: ModelConfig,
+    optimizer: Optimizer,
+    mesh,
+    state: TrainState,
+    batch_example: Mapping[str, torch.Tensor],
+    dtype=torch.float32,
+    learn_alignment: bool = False,
+):
+    """The train step of one rank of `mesh`. Returns (sharded_step, sharded_state):
+    `sharded_step(state, batch)` takes the GLOBAL batch (every rank the same rows,
+    as `batch_example`'s batch size) and uses its own block of rows; the metrics are
+    the global batch's, the same on every rank."""
+    _refuse_kernels(cfg)
+    placed = _place_state(state, mesh, optimizer)
+    rows = pmesh.local_rows(mesh, len(next(iter(batch_example.values()))))
+    data_parallel = _data_parallel(mesh)
+
+    def sharded_step(state: TrainState, batch: Dict[str, torch.Tensor]):
+        with data_parallel():
+            return _train_update(state, {k: v[rows] for k, v in batch.items()}, cfg, dtype, learn_alignment)
+
+    return sharded_step, placed
 
 
 # ------------------------------------------------------- device-resident trainer
@@ -365,6 +490,46 @@ def make_gan_steps(cfg: ModelConfig, dtype=torch.float32):
         return gen_state, {k: v.detach() for k, v in metrics.items()}
 
     return d_step, g_step
+
+
+def make_sharded_gan_steps(
+    cfg: ModelConfig,
+    g_opt: Optimizer,
+    d_opt: Optimizer,
+    mesh,
+    gen_state: TrainState,
+    disc_state: TrainState,
+    dtype=torch.float32,
+):
+    """The adversarial phase's steps on one rank of `mesh`: (mel, audio) split over
+    'data' by rows (the callers pass the global batch), the generator's parameters
+    by the vocoder rules and the critics' conv stacks by out-channels over 'model'.
+    The crop offset follows the step count, so every rank crops the same samples.
+    Returns (d_step, g_step, placed_gen_state, placed_disc_state)."""
+    _refuse_kernels(cfg)
+    d_loss_fn, g_loss_fn = _gan_loss_fns(cfg, dtype)
+    gen, disc = _place_state(gen_state, mesh, g_opt), _place_state(disc_state, mesh, d_opt)
+    data_parallel = _data_parallel(mesh)
+
+    def rows_of(x):
+        return x[pmesh.local_rows(mesh, len(x))]
+
+    def d_step(disc_state: TrainState, gen_params, mel, audio_real):
+        with data_parallel():
+            loss = d_loss_fn(disc_state.params, gen_params, rows_of(mel), rows_of(audio_real), disc_state.step)
+            _apply_grads(disc_state, loss)
+        return disc_state, loss.detach()
+
+    def g_step(gen_state: TrainState, disc_params, mel, audio_real, frame_mask):
+        with data_parallel():
+            loss, metrics = g_loss_fn(
+                gen_state.params, disc_params, rows_of(mel), rows_of(audio_real), rows_of(frame_mask),
+                gen_state.step,
+            )
+            _apply_grads(gen_state, loss)
+        return gen_state, {k: v.detach() for k, v in metrics.items()}
+
+    return d_step, g_step, gen, disc
 
 
 def make_resident_gan_chunk(

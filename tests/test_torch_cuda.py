@@ -473,3 +473,51 @@ def test_gan_pair_on_the_card_launches_no_kernel_and_matches_the_cpu(setup):
     for cpu, card in zip(runs["cpu"], runs["cuda"]):
         for k in cpu:
             np.testing.assert_allclose(card[k], cpu[k], rtol=1e-4, err_msg=k)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel", ["transformer_stack", "vocos_stack", "mel_spectrogram", "convnext_block", "gemm_tc"])
+def test_kernels_launch_on_the_tensors_card(setup, kernel):
+    """Each kernel on cuda:1 while cuda:0 is current (as a data-parallel replica
+    runs) against its plain version there, bf16 where it has a tensor-core route:
+    the launch goes to the tensors' card and the shared-memory opt-in is made for
+    that card too. Skips below two cards."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    _, model, rng = setup
+    dev = torch.device("cuda", 1)
+    model = model.to(dev)
+    torch.cuda.set_device(0)
+    x = lambda *shape: torch.as_tensor(rng.standard_normal(shape).astype(np.float32), device=dev)  # noqa: E731
+    if kernel == "transformer_stack":
+        packed = {k: v.to(dev) for k, v in ts_op.pack_params(model.acoustic.encoder, torch.bfloat16).items()}
+        mask = torch.ones((2, 64), device=dev)
+        args = (x(2, 64, 64), mask, packed, 4, None, True)
+        ours, plain = ts_op.transformer_stack(*args), ts_op.transformer_stack_plain(*args)
+        bound = 0.1
+    elif kernel == "vocos_stack":
+        packed = {k: v.to(dev) for k, v in vs_op.pack_params(model.vocoder.blocks, torch.bfloat16).items()}
+        args = (x(2, 50, 128), packed, True)
+        ours, plain = vs_op.vocos_stack(*args), vs_op.vocos_stack_plain(*args)
+        bound = 0.1
+    elif kernel == "mel_spectrogram":
+        audio = 0.1 * x(1, 128 * 256)
+        ours, plain = mel_op.mel_spectrogram(audio), mel_op.mel_spectrogram_plain(audio)
+        assert bool(((ours - plain).abs() <= 2e-4 + 1e-4 * plain.abs()).all())
+        bound = None
+    elif kernel == "convnext_block":
+        blk = model.vocoder.blocks[0]
+        args = (x(2, 100, 128), blk["dw"], blk["dw_b"], blk["ln"]["g"], blk["ln"]["b"], blk["pw1"]["w"],
+                blk["pw1"]["b"], blk["pw2"]["w"], blk["pw2"]["b"], blk["gamma"])
+        ours, plain = cb_op.convnext_block(*args, bf16=True), cb_op.convnext_block_plain(*args, bf16=True)
+        bound = 0.1
+    else:
+        a, w = x(1, 50, 128).bfloat16(), (0.05 * x(128, 256)).bfloat16()
+        bias = x(256)
+        ours = gemm_op.gemm_tc(a, w, gemm_op.EPI_BIAS, bias)
+        plain = gemm_op.gemm_tc_plain(a, w, gemm_op.EPI_BIAS, bias)
+        bound = 0.05
+    torch.cuda.synchronize(dev)
+    assert ours.device == dev and torch.cuda.current_device() == 0
+    if bound is not None:
+        assert float((ours.float() - plain.float()).abs().max()) < bound

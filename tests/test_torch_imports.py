@@ -41,3 +41,4 @@ def test_scan_sees_the_whole_port():
     assert {"losses.py", "step.py", "loop.py", "data.py", "synth_corpus.py", "checkpoint.py", "aligner.py",
             "pitch.py", "parity_gpu.py"} <= names
     assert {"vocoder.py", "vocoder_folded.py", "_jax_prng.py"} <= names
+    assert {"multi.py", "mesh.py", "tp.py", "launch.py"} <= names

@@ -564,14 +564,16 @@ def test_resident_training_on_the_corpus_learns_alignment(corpora, tmp_path):
 
 @pytest.mark.parametrize(
     "kw, error, match",
-    [({"gan": True}, ValueError, "manifest"), ({"n_data": 2}, NotImplementedError, "ROADMAP.md"),
-     ({"n_model": 2}, NotImplementedError, "ROADMAP.md")],
+    [({"gan": True}, ValueError, "manifest"),
+     ({"n_data": 2, "resident": True}, ValueError, "resident mode is single-device"),
+     ({"n_model": 2, "resident": True}, ValueError, "resident mode is single-device")],
     ids=["gan", "n_data", "n_model"],
 )
 def test_train_refuses_what_is_not_ported(kw, error, match):
-    """Sharded training is not ported and says where it is queued. The adversarial
-    phase is ported (tests/test_torch_gan.py); what it refuses, as the JAX loop
-    does, is a run without a manifest corpus, and before the joint phase."""
+    """What the loop refuses, as the JAX loop does: the adversarial phase without a
+    manifest corpus (before the joint phase), and sharding (ported:
+    tests/test_torch_parallel.py) together with the single-device resident
+    runner, with the JAX loop's message."""
     with pytest.raises(error, match=match):
         loop.train(tiny_config(), steps=1, device="cpu", **kw)
 
