@@ -11,7 +11,8 @@ surface (`load`, `warmup`, `embed_voice`, `embed_voice_file`, `synthesize_batch`
     `two_stage_batch="auto"` picks two-stage when that readback is under the
     configured threshold;
   * PCM16 transfer: the device packs `clip(wav * 32767, ±32767)` with a
-    truncating int16 cast, the host unpacks `/ 32768`;
+    truncating int16 cast, the host unpacks `/ 32768` (`utils/native.i16_to_f32`:
+    the C audio runtime, or its numpy form);
   * streaming by context-padded vocoder windows that reproduce the one-shot audio;
   * either vocoder family (`model.vocoder_family`: NovaVocos, or the HiFi-GAN
     generator, which no kernel serves: `vocos_pallas` does not apply to it, while
@@ -50,15 +51,10 @@ from ..models import params as params_mod
 from ..models import tts
 from ..text import batch_to_bucket, pick_bucket, segment_text, text_to_ids
 from ..ops.mel_spectrogram import mel_spectrogram as mel_spectrogram_fused
-from ..utils import Timers, read_wav
+from ..utils import Timers, native, read_wav
 from . import multi
 
 logger = logging.getLogger("gonova_tts_tpu_torch.engine")
-
-
-def i16_to_f32(pcm: np.ndarray) -> np.ndarray:
-    """Host unpack of the device's PCM16 transfer."""
-    return np.asarray(pcm, np.int16).astype(np.float32) / 32768.0
 
 
 class TTSEngine:
@@ -189,7 +185,7 @@ class TTSEngine:
 
     def _unpack(self, audio: torch.Tensor) -> np.ndarray:
         host = audio.cpu().numpy()
-        return i16_to_f32(host) if self.ecfg.transfer_dtype == "int16" else host.astype(np.float32)
+        return native.i16_to_f32(host) if self.ecfg.transfer_dtype == "int16" else host.astype(np.float32)
 
     def _tensors(self, tokens, mask, spk, exagg, device=None):
         dev = device or self.device

@@ -92,14 +92,35 @@ def embedding_init(g: torch.Generator, vocab: int, dim: int) -> Tree:
 # ---------------------------------------------------------------- apply fns
 
 
-def dense(p: Mapping, x: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
+ROW_TILE = 128  # rows of each product `tiled_matmul` issues
+
+
+def tiled_matmul(x: torch.Tensor, w: torch.Tensor, tile: int = ROW_TILE) -> torch.Tensor:
+    """x [..., K] @ w [K, N] as products of exactly `tile` rows (the last one
+    zero-padded), so that a row's result does not depend on how many rows share the
+    call. BLAS libraries choose the blocking and the K split of a product by its
+    shape: without the tiles a row of a short streamed window rounds otherwise than
+    the same row of a longer pass."""
+    lead = x.shape[:-1]
+    rows = x.reshape(-1, x.shape[-1])
+    m = rows.shape[0]
+    rows = F.pad(rows, (0, 0, 0, -m % tile))
+    y = torch.cat([rows[i : i + tile] @ w for i in range(0, rows.shape[0], tile)])
+    return y[:m].reshape(*lead, w.shape[-1])
+
+
+def dense(p: Mapping, x: torch.Tensor, dtype=torch.float32, tiled: bool = False) -> torch.Tensor:
     """x @ w + b. Column-parallel w (split on out): this rank's output columns;
-    row-parallel w (split on in): x holds this rank's input columns."""
+    row-parallel w (split on in): x holds this rank's input columns. `tiled` takes
+    the product through `tiled_matmul` (a replicated w only)."""
     w = p["w"]
     split = tp.split_dim(w)
     if split == 1:
         x = tp.copy(x)
-    y = x.to(dtype) @ w.to(dtype)
+    if tiled and split is None:
+        y = tiled_matmul(x.to(dtype), w.to(dtype))
+    else:
+        y = x.to(dtype) @ w.to(dtype)
     if split == 0:
         y = tp.reduce(y)
     return y + p["b"].to(dtype)

@@ -18,6 +18,7 @@ from torch import nn
 from ..audio.stft import hann_window, idft_bases
 from ..config import ModelConfig
 from ..ops import vocos_stack as vs_op
+from ..parallel import tp
 from . import layers
 from .layers import Tree
 
@@ -41,13 +42,30 @@ def _depthwise_conv(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor, dtype) ->
     return y.transpose(1, 2) + b.to(dtype)
 
 
-def _block_apply(p: Mapping, x: torch.Tensor, dtype) -> torch.Tensor:
+def _block_apply(p: Mapping, x: torch.Tensor, dtype, tiled: bool = False) -> torch.Tensor:
     h = _depthwise_conv(p["dw"], p["dw_b"], x, dtype)
+    if tiled:
+        # The conv's output is [B, C, T] memory seen as [B, T, C]: over that strided
+        # last dim the CPU's LayerNorm reductions vectorize across rows and sum the
+        # rows past the last full vector in another order, by the row's position.
+        h = h.contiguous()
     h = layers.layernorm(p["ln"], h)
-    h = layers.dense(p["pw1"], h, dtype)
+    h = layers.dense(p["pw1"], h, dtype, tiled=tiled)
     h = F.gelu(h, approximate="tanh")  # jax.nn.gelu is the tanh form
-    h = layers.dense(p["pw2"], h, dtype)
+    h = layers.dense(p["pw2"], h, dtype, tiled=tiled)
     return x + h * p["gamma"].to(h.dtype)
+
+
+def _embed(p: Mapping, mel: torch.Tensor, dtype, tiled: bool) -> torch.Tensor:
+    """The k=7 SAME embed conv; `tiled`: as one `tiled_matmul` over K = 7 * n_mels
+    (the columns [mel[t-3], ..., mel[t+3]], zero rows past the ends)."""
+    w = p["w"]
+    if not tiled or tp.split_dim(w) is not None:
+        return layers.conv1d(p, mel.to(dtype), dtype=dtype)
+    k, t = w.shape[0], mel.shape[1]
+    x = F.pad(mel.to(dtype), (0, 0, k // 2, k // 2))
+    cols = torch.cat([x[:, j : j + t] for j in range(k)], dim=-1)
+    return layers.tiled_matmul(cols, w.to(dtype).reshape(-1, w.shape[-1])) + p["b"].to(dtype)
 
 
 class Vocos(Tree):
@@ -79,8 +97,12 @@ def forward(params: Mapping, mel: torch.Tensor, cfg: ModelConfig, dtype=torch.fl
                          "(n_fft == 4 * hop_length, win_length == n_fft)")
     n_bins = n_fft // 2 + 1
     t = mel.shape[1]
+    # A pass without autograd (serving) takes each product in fixed row tiles, so
+    # that a streamed window's rows equal the same rows of the batch pass bit for bit
+    # (the engine's streaming invariant). A training pass takes one product each.
+    tiled = not torch.is_grad_enabled()
 
-    x = layers.conv1d(params["embed"], mel.to(dtype), dtype=dtype)
+    x = _embed(params["embed"], mel, dtype, tiled)
     if cfg.vocos_pallas and t <= vs_op.MAX_T:
         blocks = params["blocks"]
         packed = layers.cached(
@@ -89,9 +111,9 @@ def forward(params: Mapping, mel: torch.Tensor, cfg: ModelConfig, dtype=torch.fl
         x = vs_op.vocos_stack(x, packed, bf16=(dtype == torch.bfloat16)).to(dtype)
     else:
         for blk in params["blocks"]:
-            x = _block_apply(blk, x, dtype)
+            x = _block_apply(blk, x, dtype, tiled)
     x = layers.layernorm(params["ln_out"], x)
-    head = layers.dense(params["head"], x, dtype).float()
+    head = layers.dense(params["head"], x, dtype, tiled=tiled).float()
 
     mag = torch.exp(torch.clamp(head[..., :n_bins], -14.0, 6.0))
     if cfg.vocos_head == "cartesian":
@@ -104,10 +126,12 @@ def forward(params: Mapping, mel: torch.Tensor, cfg: ModelConfig, dtype=torch.fl
         real, imag = mag * torch.cos(phase), mag * torch.sin(phase)
     # The port computes the iDFT in full f32 for every istft_precision setting: a
     # CUDA f32 matmul is exact f32 with TF32 off (device.resolve_device pins it).
-    return istft_synthesis(real, imag, n_fft, hop)
+    return istft_synthesis(real, imag, n_fft, hop, tiled)
 
 
-def istft_synthesis(real: torch.Tensor, imag: torch.Tensor, n_fft: int, hop: int) -> torch.Tensor:
+def istft_synthesis(
+    real: torch.Tensor, imag: torch.Tensor, n_fft: int, hop: int, tiled: bool = False
+) -> torch.Tensor:
     """Windowed iSTFT for 4x-overlap framing: [B, T, bins] x2 → [B, T * hop].
 
     Inverse real DFT as one product with the synthesis window folded into the
@@ -117,7 +141,8 @@ def istft_synthesis(real: torch.Tensor, imag: torch.Tensor, n_fft: int, hop: int
     icos, isin = idft_bases(n_fft)
     bases = np.concatenate([icos, -isin], axis=0) * hann_window(n_fft)[None, :]
     bases = torch.as_tensor(bases, device=real.device)
-    frames = torch.cat([real, imag], dim=-1) @ bases  # [B, T, n_fft]
+    spec = torch.cat([real, imag], dim=-1)
+    frames = layers.tiled_matmul(spec, bases) if tiled else spec @ bases  # [B, T, n_fft]
     segs = frames.reshape(b, t, 4, hop)
     out = torch.zeros((b, (t + 3) * hop), device=real.device)
     for k in range(4):

@@ -65,7 +65,9 @@ def vocos_stack_plain(x: torch.Tensor, packed: Mapping[str, torch.Tensor], bf16:
     for l in range(packed["dw"].shape[0]):
         k = packed["dw"].shape[1]
         w = packed["dw"][l].t()[:, None, :]  # [C, 1, k]
-        acc = F.conv1d(act.float().transpose(1, 2), w, padding=k // 2, groups=c).transpose(1, 2)
+        # Contiguous rows: the CPU reductions over a strided last dim would sum a row
+        # in an order set by its position, and the kernel's rows do not depend on T.
+        acc = F.conv1d(act.float().transpose(1, 2), w, padding=k // 2, groups=c).transpose(1, 2).contiguous()
         acc = acc + packed["dw_b"][l]
         mean = acc.mean(-1, keepdim=True)
         var = ((acc - mean) ** 2).mean(-1, keepdim=True)

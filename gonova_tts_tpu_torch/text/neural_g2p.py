@@ -1,17 +1,22 @@
-"""Neural grapheme-to-phoneme: the numpy serving half of the char→ARPAbet ensemble.
+"""Neural grapheme-to-phoneme: the char→ARPAbet seq2seq ensemble, model and serving.
 
-The ensemble (two 192-d 3+3-layer and four 256-d 4+4-layer seq2seq transformer
-members) is trained and evaluated by the JAX package (its text/neural_g2p.py and
-tools/train_g2p.py); serving runs it in a vectorized numpy beam decoder. This
-module is that decoder, with the same vocabularies, weight loader and
-memoized serving path, so the port pronounces out-of-lexicon words exactly as
-the JAX frontend does. The weights are read in place from the JAX package's
-text data directory (see paths.py).
+Two halves, as in the JAX package's text/neural_g2p.py:
+
+  * the model (`G2P`, `init`, `teacher_logits`, `greedy_decode`, `save_weights`,
+    `from_numpy_tree`): the transformer encoder over characters and the
+    autoregressive decoder over phonemes in PyTorch, on the device it is given
+    (CUDA unless the caller asks for the CPU). tools/train_g2p.py trains it;
+  * serving: the ensemble (two 192-d 3+3-layer and four 256-d 4+4-layer members)
+    in a vectorized numpy beam decoder, with the same vocabularies, weight loader
+    and memoized serving path, so the port pronounces out-of-lexicon words
+    exactly as the JAX frontend does. The weights are read in place from the JAX
+    package's text data directory (see paths.py).
 
 Weight files store the flattened parameter tree in JAX's flatten order
 (`p0`, `p1`, ...): dict keys sorted, list order kept. `load_weights` rebuilds the
-tree by that same walk; any other order would load weights into the wrong slots
-without an error (the OOV parity test against the JAX frontend catches it).
+tree by that same walk and `save_weights` writes it; any other order would load
+weights into the wrong slots without an error (the OOV parity test against the
+JAX frontend catches it).
 """
 
 from __future__ import annotations
@@ -22,8 +27,12 @@ import threading
 from typing import Dict, List, Optional
 
 import numpy as np
+import torch
+from torch import nn
 
-from ..models.layers import sinusoidal_positions
+from ..device import resolve_device
+from ..models import layers
+from ..models.layers import Tree, sinusoidal_positions
 from .paths import DATA_DIR
 from .symbols import PHONEMES, STRESSED_VOWELS
 
@@ -132,6 +141,174 @@ def load_weights(path: str = WEIGHTS_PATH) -> dict:
         for i, leaf_path in enumerate(paths):
             _set_path(tree, leaf_path, np.asarray(data[f"p{i}"], np.float32))
     return tree
+
+# ---------------------------------------------------------------- model
+# JAX's arithmetic: attention is einsum, / sqrt(dh), additive -1e9 masks (key
+# padding, causal), softmax in f32; no fused attention, whose -inf masks and
+# kernels move near-tie argmaxes.
+
+
+def _ffn_init(g: torch.Generator, d: int, f: int) -> Tree:
+    return layers.group(w1=layers.dense_init(g, d, f), w2=layers.dense_init(g, f, d))
+
+
+def _block_init(g: torch.Generator, d: int, f: int, cross: bool) -> Tree:
+    parts = {"ln1": layers.layernorm_init(d), "self": layers.mha_init(g, d), "ln2": layers.layernorm_init(d)}
+    if cross:
+        parts.update(cross=layers.mha_init(g, d), ln3=layers.layernorm_init(d))
+    return layers.group(**parts, ffn=_ffn_init(g, d, f))
+
+
+class G2P(Tree):
+    """The parameter tree of JAX's `init`: `char_embed`, `phon_embed`, `enc[i]`
+    (`ln1`, `self`, `ln2`, `ffn`), `dec[i]` (`ln1`, `self`, `ln2`, `cross`, `ln3`,
+    `ffn`), `ln_out`, `out`; its state_dict keys are those paths."""
+
+    def __init__(self, g: torch.Generator, d_model: int, d_ff: int, enc_layers: int, dec_layers: int):
+        super().__init__()
+        if d_model % N_HEADS:
+            raise ValueError(f"d_model {d_model} is not a multiple of {N_HEADS} heads")
+        self.char_embed = layers.embedding_init(g, N_CHAR_VOCAB, d_model)
+        self.phon_embed = layers.embedding_init(g, N_PHON_VOCAB, d_model)
+        self.enc = nn.ModuleList(_block_init(g, d_model, d_ff, False) for _ in range(enc_layers))
+        self.dec = nn.ModuleList(_block_init(g, d_model, d_ff, True) for _ in range(dec_layers))
+        self.ln_out = layers.layernorm_init(d_model)
+        self.out = layers.dense_init(g, d_model, N_PHON_VOCAB)
+
+
+def init(
+    g: torch.Generator,
+    d_model: int = D_MODEL,
+    d_ff: int = D_FF,
+    enc_layers: int = ENC_LAYERS,
+    dec_layers: int = DEC_LAYERS,
+    device=None,
+) -> G2P:
+    """A seeded model on `device` (CUDA unless the caller asks for the CPU). The
+    distributions are JAX's `init`; the numbers differ (parity tests carry one
+    JAX tree across with `from_numpy_tree`). Parameters are built frozen; a
+    trainer turns their gradients on."""
+    return G2P(g, d_model, d_ff, enc_layers, dec_layers).to(resolve_device(device))
+
+
+def from_numpy_tree(tree: dict, device=None) -> G2P:
+    """The tree `load_weights` returns (or a JAX `init` tree as numpy) → a `G2P`
+    on `device`. Widths and depths are read from the tree; every leaf must land in
+    a parameter of the same path and shape."""
+    d_model = int(np.shape(tree["char_embed"]["table"])[1])
+    d_ff = int(np.shape(tree["enc"][0]["ffn"]["w1"]["w"])[1]) if tree["enc"] else d_model
+    model = G2P(torch.Generator(), d_model, d_ff, len(tree["enc"]), len(tree["dec"]))
+    state = model.state_dict()
+    flat = {".".join(map(str, path)): np.array(_get_path(tree, path), np.float32) for path in _flatten_order(tree)}
+    if set(flat) != set(state) or any(tuple(flat[k].shape) != tuple(state[k].shape) for k in state):
+        raise ValueError(f"G2P tree does not fit {d_model}-d {len(tree['enc'])}+{len(tree['dec'])} layers")
+    model.load_state_dict({k: torch.from_numpy(v) for k, v in flat.items()})
+    return model.to(resolve_device(device))
+
+
+def _get_path(tree, path: tuple):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def _xattn(p, q_in: torch.Tensor, kv_in: torch.Tensor, key_mask: Optional[torch.Tensor], causal: bool) -> torch.Tensor:
+    """Attention of q_in [B, Tq, D] over kv_in [B, Tk, D]; key_mask [B, Tk] (1 = valid)."""
+    b, tq, d = q_in.shape
+    tk = kv_in.shape[1]
+    h, dh = N_HEADS, d // N_HEADS
+    q = layers.dense(p["q"], q_in).reshape(b, tq, h, dh)
+    k = layers.dense(p["k"], kv_in).reshape(b, tk, h, dh)
+    v = layers.dense(p["v"], kv_in).reshape(b, tk, h, dh)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(dh)
+    if key_mask is not None:
+        logits = logits + torch.where(key_mask[:, None, None, :] != 0, 0.0, layers.NEG)
+    if causal:
+        cm = torch.tril(torch.ones((tq, tk), dtype=torch.bool, device=q_in.device))
+        logits = logits + torch.where(cm[None, None], 0.0, layers.NEG)
+    out = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(logits, dim=-1), v)
+    return layers.dense(p["o"], out.reshape(b, tq, d))
+
+
+def _ffn(p, x: torch.Tensor) -> torch.Tensor:
+    return layers.dense(p["w2"], torch.relu(layers.dense(p["w1"], x)))
+
+
+def _positions(t: int, d: int, device) -> torch.Tensor:
+    return torch.as_tensor(sinusoidal_positions(t, d), device=device)
+
+
+def _encode(model: G2P, chars: torch.Tensor, char_mask: torch.Tensor) -> torch.Tensor:
+    x = layers.embedding(model["char_embed"], chars)
+    x = x + _positions(chars.shape[1], x.shape[-1], x.device)
+    for blk in model["enc"]:
+        n = layers.layernorm(blk["ln1"], x)
+        x = x + _xattn(blk["self"], n, n, char_mask, False)
+        x = x + _ffn(blk["ffn"], layers.layernorm(blk["ln2"], x))
+    return x
+
+
+def _decode(model: G2P, enc: torch.Tensor, char_mask: torch.Tensor, phon_in: torch.Tensor) -> torch.Tensor:
+    """Decoder input ids [B, Tp] (BOS-shifted) → logits [B, Tp, V]."""
+    y = layers.embedding(model["phon_embed"], phon_in)
+    y = y + _positions(phon_in.shape[1], y.shape[-1], y.device)
+    for blk in model["dec"]:
+        n = layers.layernorm(blk["ln1"], y)
+        y = y + _xattn(blk["self"], n, n, None, True)
+        y = y + _xattn(blk["cross"], layers.layernorm(blk["ln2"], y), enc, char_mask, False)
+        y = y + _ffn(blk["ffn"], layers.layernorm(blk["ln3"], y))
+    return layers.dense(model["out"], layers.layernorm(model["ln_out"], y))
+
+
+def teacher_logits(model: G2P, chars: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Training forward: chars [B, MAX_CHARS], targets [B, MAX_PHONS] (phonemes +
+    EOS + pad) → logits [B, MAX_PHONS, V] for next-token prediction (the decoder
+    reads BOS + targets[:, :-1])."""
+    char_mask = (chars != CHAR_PAD).float()
+    enc = _encode(model, chars, char_mask)
+    bos = torch.full((targets.shape[0], 1), P_BOS, dtype=targets.dtype, device=targets.device)
+    return _decode(model, enc, char_mask, torch.cat([bos, targets[:, :-1]], dim=1))
+
+
+@torch.no_grad()
+def greedy_decode(model: G2P, chars: torch.Tensor) -> torch.Tensor:
+    """chars [B, MAX_CHARS] → predicted ids [B, MAX_PHONS] (greedy; the ids after
+    the first EOS are whatever the model says next, as in JAX).
+
+    Each of the MAX_PHONS - 1 steps recomputes the whole decoder over the BOS-led
+    buffer, as JAX's `fori_loop` does; the final slot stays reserved for EOS
+    (`encode_phonemes` rejects longer words, the numpy decoder caps likewise).
+    `torch.argmax` takes the first maximum, as `jnp.argmax` does."""
+    b = chars.shape[0]
+    char_mask = (chars != CHAR_PAD).float()
+    enc = _encode(model, chars, char_mask)
+    buf = torch.full((b, 1 + MAX_PHONS), P_PAD, dtype=torch.long, device=chars.device)
+    buf[:, 0] = P_BOS
+    for t in range(MAX_PHONS - 1):
+        logits = _decode(model, enc, char_mask, buf[:, :-1])
+        buf[:, t + 1] = torch.argmax(logits[:, t, :], dim=-1)
+    return buf[:, 1:]
+
+
+def to_numpy_tree(model: G2P) -> dict:
+    """The model's parameters as the nested numpy tree `load_weights` returns."""
+    state = model.state_dict()
+    tree = _tree_skeleton(len(model["enc"]), len(model["dec"]))
+    for path in _flatten_order(tree):
+        _set_path(tree, path, state[".".join(map(str, path))].detach().float().cpu().numpy())
+    return tree
+
+
+def save_weights(model: G2P, path: str) -> None:
+    """JAX's format: float16 leaves `p0…pN` in its flatten order plus `meta_layers`
+    ([enc, dec]), so both packages' `load_weights` read the file back."""
+    tree = to_numpy_tree(model)
+    np.savez_compressed(
+        path,
+        meta_layers=np.asarray([len(tree["enc"]), len(tree["dec"])], np.int32),
+        **{f"p{i}": np.asarray(_get_path(tree, p), np.float16) for i, p in enumerate(_flatten_order(tree))},
+    )
+
 
 # ---------------------------------------------------------------- numpy inference
 # A dependency-free numpy forward pass: no backend assumptions, microsecond-scale

@@ -1,15 +1,19 @@
-"""Scoped wall-clock timers with rolling percentile summaries (thread-safe).
+"""Profiling: scoped wall-clock timers and an optional device trace.
 
-Each engine owns one `Timers`; its summary is part of `TTSEngine.get_stats()`.
+Each engine owns one `Timers` (rolling percentile summaries, thread-safe); its
+summary is part of `TTSEngine.get_stats()`. `device_trace` is the counterpart of
+the JAX package's `jax.profiler` hook: a `torch.profiler` trace of a block, written
+as a Chrome trace for a timeline viewer.
 """
 
 from __future__ import annotations
 
 import contextlib
+import os
 import threading
 import time
 from collections import defaultdict, deque
-from typing import Dict, Iterator
+from typing import Dict, Iterator, Optional
 
 import numpy as np
 
@@ -48,3 +52,22 @@ class Timers:
                     "mean_ms": round(float(arr.mean()) * 1000, 3),
                 }
         return out
+
+
+@contextlib.contextmanager
+def device_trace(log_dir: Optional[str]) -> Iterator[None]:
+    """Trace the block with `torch.profiler` into `log_dir` (a no-op when None):
+    host activity, and the card's kernels where a card is present. Writes
+    `trace_<pid>_<n>.json` (Chrome format)."""
+    if not log_dir:
+        yield
+        return
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if torch.cuda.is_available() else [])
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield
+    n = len([f for f in os.listdir(log_dir) if f.startswith(f"trace_{os.getpid()}_")])
+    prof.export_chrome_trace(os.path.join(log_dir, f"trace_{os.getpid()}_{n}.json"))

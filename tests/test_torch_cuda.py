@@ -521,3 +521,49 @@ def test_kernels_launch_on_the_tensors_card(setup, kernel):
     assert ours.device == dev and torch.cuda.current_device() == 0
     if bound is not None:
         assert float((ours.float() - plain.float()).abs().max()) < bound
+
+
+def _divergences(ng, model, chars, ids, other):
+    """(word index, first differing step, top-2 logit gap there) for each row where
+    `ids` and `other` differ up to their first EOS; the logits are `model`'s for
+    its own prefix `ids` (causal: one teacher-forced pass gives every step's)."""
+    logits = ng.teacher_logits(model, chars, ids).float().cpu()
+    out = []
+    for i, (a, b) in enumerate(zip(ids.cpu().tolist(), other.cpu().tolist())):
+        if ng.decode_ids(np.asarray(a)) == ng.decode_ids(np.asarray(b)):
+            continue
+        t = next(j for j, (x, y) in enumerate(zip(a, b)) if x != y)
+        top = torch.topk(logits[i, t], 2).values
+        out.append((i, t, float(top[0] - top[1])))
+    return out
+
+
+@pytest.mark.gpu
+def test_g2p_greedy_decode_on_the_card_matches_the_cpu(setup):
+    """The vendored primary on the 1,255 held-out words: the card's greedy ids equal
+    the CPU's, except where the top-2 logit gap at the first differing step is
+    below 1e-3 (f32 summation order picks either side of a near-tie)."""
+    from gonova_tts_tpu_torch.text import neural_g2p as ng
+    from gonova_tts_tpu_torch.text.g2p import VENDORED_LEXICON
+    from gonova_tts_tpu_torch.tools.g2p_eval import held_out_split
+
+    dev = setup[0]
+    tree = ng.load_weights()
+    words = sorted(held_out_split(dict(VENDORED_LEXICON)))
+    chars = torch.as_tensor(np.stack([ng.encode_word(w) for w in words])).long()
+    cpu = ng.greedy_decode(ng.from_numpy_tree(tree, device="cpu"), chars)
+    card_model = ng.from_numpy_tree(tree, device=dev)
+    card = ng.greedy_decode(card_model, chars.to(dev))
+    assert card.device.type == "cuda" and card.shape == (len(words), ng.MAX_PHONS)
+    diverged = _divergences(ng, card_model, chars.to(dev), card, cpu)
+    assert all(gap < 1e-3 for _, _, gap in diverged), diverged
+    assert len(diverged) <= 5
+
+
+@pytest.mark.gpu
+def test_native_runtime_builds_and_loads(setup):
+    from gonova_tts_tpu_torch.utils import native
+
+    assert native.native_available(), native.native_error()
+    pcm = np.arange(-4, 4, dtype=np.int16)
+    np.testing.assert_array_equal(native.i16_to_f32(pcm), native.i16_to_f32_numpy(pcm))

@@ -126,6 +126,24 @@ def test_streamed_matches_one_shot(pair, ctx):
     assert list(port.synthesize_stream("")) == []
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_streamed_equals_batch_on_the_demo_checkpoint(dtype):
+    """tools/eval_checkpoint.py's stream check on the demo checkpoint: the port's
+    streamed and batch audio are equal to the int16 LSB (0 LSB), as the JAX
+    engine's are on the CPU."""
+    from gonova_tts_tpu_torch.train.synth_corpus import make_sentences
+
+    cfg = Config()
+    cfg.model = ModelConfig(model_path="assets/checkpoints/demo_ema_f16.npz", compute_dtype=dtype)
+    eng = TTSEngine(cfg, device="cpu")
+    eng.load(warmup=False)
+    text, spk = make_sentences(1)[0], eng.default_speaker()
+    whole = eng.synthesize_batch([text], speakers=[spk])[0]
+    streamed = np.concatenate(list(eng.synthesize_stream(text, speaker=spk)))
+    assert len(streamed) == len(whole)
+    assert float(np.max(np.abs(whole - streamed))) * 32767.0 == 0.0
+
+
 def test_two_stage_local_attention_choice_follows_one_graph():
     """One-graph frame count past the local threshold, frame bucket below it: the
     two-stage decode must still take local attention (and match the JAX engine)."""

@@ -42,3 +42,4 @@ def test_scan_sees_the_whole_port():
             "pitch.py", "parity_gpu.py"} <= names
     assert {"vocoder.py", "vocoder_folded.py", "_jax_prng.py"} <= names
     assert {"multi.py", "mesh.py", "tp.py", "launch.py"} <= names
+    assert {"train_g2p.py", "g2p_eval.py", "eval_checkpoint.py", "clone_eval.py", "prof.py"} <= names

@@ -51,6 +51,24 @@ def test_dense_embedding_layernorm_conv(rng):
     np.testing.assert_array_equal(tl.sinusoidal_positions(50, 16), jl.sinusoidal_positions(50, 16))
 
 
+def test_tiled_matmul_and_dense_tiled_match_jax(rng):
+    x = rng.standard_normal((2, 150, 16)).astype(np.float32)
+    d = jl.dense_init(jax.random.PRNGKey(0), 16, 24)
+    close(tl.dense(to_torch(d), torch.as_tensor(x), tiled=True), jl.dense(d, jnp.asarray(x)))
+    w = torch.as_tensor(rng.standard_normal((16, 24)).astype(np.float32))
+    np.testing.assert_allclose(tl.tiled_matmul(torch.as_tensor(x), w).numpy(), x @ w.numpy(), atol=2e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("rows,start", [(122, 35), (100, 0), (7, 250)])
+def test_tiled_rows_do_not_depend_on_the_call_shape(rng, rows, start):
+    """A window's rows of the tiled product equal the same rows of a longer call
+    bit for bit."""
+    x = torch.as_tensor(rng.standard_normal((1, 512, 96)).astype(np.float32))
+    w = torch.as_tensor(rng.standard_normal((96, 200)).astype(np.float32))
+    sl = slice(start, start + rows)
+    assert torch.equal(tl.tiled_matmul(x, w)[:, sl], tl.tiled_matmul(x[:, sl].clone(), w))
+
+
 @pytest.mark.parametrize(
     "t,window,lengths",
     [

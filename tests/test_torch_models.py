@@ -145,6 +145,25 @@ def test_vocos_forward(head, rng):
 
 
 @pytest.mark.parametrize("kernels", [False, True])
+def test_vocos_serving_pass_is_row_stable_and_matches_jax(rng, kernels):
+    """A pass without autograd (the engine's) takes the tiled products: the audio
+    still matches JAX, and a context-padded window reproduces the same samples of
+    the longer pass bit for bit (12 frames of context cover the 2-layer stack's
+    receptive field, 9, and the iSTFT's 2)."""
+    jcfg = JModelConfig(**TINY)
+    full = jax.tree_util.tree_map(np.asarray, jtts.init(jax.random.PRNGKey(0), jcfg))
+    model = params.from_numpy_tree(full, ModelConfig(**TINY, vocos_pallas=kernels), device="cpu")
+    mel = rng.standard_normal((1, 300, 80)).astype(np.float32)
+    hop, ctx, stride = 256, 12, 48
+    with torch.inference_mode():
+        whole = vocos.forward(model.vocoder, torch.as_tensor(mel), model.cfg)
+        close(whole, jvocos.forward(full["vocoder"], jnp.asarray(mel), jcfg), atol=2e-5)
+        for st in (ctx, 100, 300 - stride - ctx):
+            win = vocos.forward(model.vocoder, torch.as_tensor(mel[:, st - ctx : st + stride + ctx]), model.cfg)
+            assert torch.equal(win[:, ctx * hop : (ctx + stride) * hop], whole[:, st * hop : (st + stride) * hop])
+
+
+@pytest.mark.parametrize("kernels", [False, True])
 def test_synthesize_matches_jax(tiny, kernels):
     """One-graph pipeline; with kernels=True both sides take their kernel routes
     (the port's plain versions, JAX's Pallas kernels in interpret mode)."""
