@@ -39,7 +39,7 @@ Phases; any failure exits non-zero before the final line:
      again with launch counts reset just before and read just after.
   6. service: the WS protocol end to end. A TTSService on the demo checkpoint (bf16,
      both stack kernels, default voice assets/default_voice.wav) served through
-     `handle_connection` over an in-memory socket (no aiohttp on the card's machine):
+     `handle_connection` over an in-memory socket (the service's path without aiohttp):
      register_voice (the default voice's samples declared at 30 kHz, a higher
      voice), synthesize with that voice, with an unknown voice (the default
      voice), list_voices, wav and each of mp3/opus the host offers, metadata,
@@ -125,10 +125,24 @@ Phases; any failure exits non-zero before the final line:
      0 int16 LSB in f32, eval_checkpoint's clone margin positive in both dtypes, and (counts
      from 0 just before the runs, read just after) the transformer, Vocos and mel
      kernels launched.
- 15. output: a `kernels` JSON line (every kernel with its launches on each path,
+ 15. tools: the repo's four diagnostics as the port runs them (`tools:` lines):
+     g2p_coverage on its sample (exact coverage >= 0.97, morph > 0.2, the bounds of
+     tests/test_morph.py); jitter_floor on the demo corpus (both floors > 0.1, both
+     length ratios in 0.7-1.3) and its wall time; align_diag on the demo corpus for
+     ALIGN_STEPS steps graded every ALIGN_EVAL_EVERY (every loss finite, the last
+     below the first; the grades are readings), with its ms a step, launches a step
+     and device idle share (torch.profiler over one warm step); ws_smoke on the demo
+     checkpoint in bf16 with both kernel switches on, over the transport the host
+     offers (aiohttp's test server where aiohttp imports) and again over the in-memory
+     socket with aiohttp hidden (each: health "healthy" on backend "cuda", finite
+     audio above NOT_SILENT_RMS in at least one chunk; the two runs' chunks and audio
+     seconds equal, rms and peak within one int16 LSB; TTFA, steady TTFA and the
+     realtime factor as readings). Counts from 0 at the phase's start, read at its
+     end: the transformer, Vocos and mel kernels launched.
+ 16. output: a `kernels` JSON line (every kernel with its launches on each path,
      `launches_hifigan_path`, `launches_gan_phase`, `launches_dp_path`,
-     `launches_g2p_phase` and `launches_grade_path` included), the nvidia-smi line,
-     then the `ok` JSON line.
+     `launches_g2p_phase`, `launches_grade_path` and `launches_tools_phase`
+     included), the nvidia-smi line, then the `ok` JSON line.
 
 Bounds (max |error| unless named):
   kernels f32: KERNEL_F32_BOUND (summation order through up to 8 layers);
@@ -710,6 +724,8 @@ def profile(eng, torch, unprofiled_ms: float) -> dict:
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as tprofile
 
+    from gonova_tts_tpu_torch.utils.prof import device_events
+
     for _ in range(2):
         pinned(eng, True, SENTENCES)
         torch.cuda.synchronize()
@@ -727,17 +743,6 @@ def profile(eng, torch, unprofiled_ms: float) -> dict:
         "device_idle_share": max(0.0, 1 - busy_ms / unprofiled_ms),
         "top": top_events(rows[:14]),
     }
-
-
-def device_events(prof) -> list:
-    """A torch.profiler trace's device events (kernels and copies), largest device
-    time first. A user-annotated range (an optimizer's step) also shows as a device
-    event spanning its kernels: it is left out, or its kernels would count twice."""
-    from torch.autograd import DeviceType
-
-    return sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
-                   and e.self_device_time_total > 0 and not getattr(e, "is_user_annotation", False)),
-                  key=lambda e: e.self_device_time_total, reverse=True)
 
 
 def top_events(events, per: int = 1) -> list:
@@ -855,65 +860,6 @@ def run_voice(torch, np, report):
 # ------------------------------------------------------------------ phase 6
 
 
-class MemorySocket:
-    """The WebSocket as TTSService sees it: an async iterator of inbound messages
-    (`.type`, `.data`) and `send_json` / `send_bytes` / `close`, each outbound frame
-    recorded with `time.perf_counter()`. The client side ends the stream (a CLOSE
-    message) only after its last synthesis_complete: the service drops a
-    connection's pending output as soon as its receive side ends."""
-
-    class Msg:
-        def __init__(self, type_, data):
-            self.type, self.data = type_, data
-
-    def __init__(self, msg_types):
-        self.types = msg_types
-        self.inbound: asyncio.Queue = asyncio.Queue()
-        self.frames = []  # (perf_counter, "json" | "binary", payload)
-        self.changed = asyncio.Event()
-        self.closed = False
-
-    def __aiter__(self):
-        return self
-
-    async def __anext__(self):
-        msg = await self.inbound.get()
-        if msg is None:
-            raise StopAsyncIteration
-        return msg
-
-    def _record(self, kind, payload):
-        self.frames.append((time.perf_counter(), kind, payload))
-        self.changed.set()
-
-    async def send_json(self, data):
-        self._record("json", data)
-
-    async def send_bytes(self, data):
-        self._record("binary", bytes(data))
-
-    async def close(self, **_):
-        self.closed = True
-
-    async def end(self):
-        await self.inbound.put(self.Msg(self.types.CLOSE, None))
-        await self.inbound.put(None)
-
-    async def request(self, message: dict, until):
-        """Send one message; return (send time, the frames up to and including the
-        first JSON frame whose type is in `until`)."""
-        start = len(self.frames)
-        t0 = time.perf_counter()
-        await self.inbound.put(self.Msg(self.types.TEXT, json.dumps(message)))
-        while True:
-            for i in range(start, len(self.frames)):
-                _, kind, payload = self.frames[i]
-                if kind == "json" and payload.get("type") in until:
-                    return t0, self.frames[start:i + 1]
-            self.changed.clear()
-            await asyncio.wait_for(self.changed.wait(), 120)
-
-
 def synthesis_ok(frames, metadata=False) -> bool:
     """Binary frames then synthesis_complete with chunk_id = their count (after a
     synthesis_started where metadata was asked)."""
@@ -939,7 +885,7 @@ def run_service(torch, np, report):
     from gonova_tts_tpu_torch import ops
     from gonova_tts_tpu_torch.audio import encode
     from gonova_tts_tpu_torch.service import TTSService
-    from gonova_tts_tpu_torch.service.server import WSMsgType
+    from gonova_tts_tpu_torch.service.memory_socket import MemorySocket
     from gonova_tts_tpu_torch.utils import read_wav, write_wav
 
     # The registered voice is the default voice's samples declared at 30 kHz: the same
@@ -985,7 +931,7 @@ def run_service(torch, np, report):
         # The main path: launch counts from zero, read right after.
         ops.reset_launch_counts()
 
-        sock = MemorySocket(WSMsgType)
+        sock = MemorySocket()
         conn = asyncio.create_task(svc.handle_connection(sock, "smoke-0"))
         _, reg = await sock.request({"type": "register_voice", "voice_id": "smoke-voice", "reference_audio": payload},
                                     ("voice_registered", "error"))
@@ -1013,7 +959,7 @@ def run_service(torch, np, report):
         # Concurrency 4: four connections at once, one sentence each, four rounds.
         c4, c4_wall, c4_audio, c4_rounds = [], 0.0, 0.0, []
         for r in range(4):
-            socks = [MemorySocket(WSMsgType) for _ in SENTENCES]
+            socks = [MemorySocket() for _ in SENTENCES]
             conns = [asyncio.create_task(svc.handle_connection(s, f"smoke-{r}-{i}")) for i, s in enumerate(socks)]
             mark, t0 = len(passes), time.perf_counter()
             rs = await asyncio.gather(*[timed_request(s, {"type": "synthesize", "text": t}) for s, t in zip(socks, SENTENCES)])
@@ -1191,6 +1137,8 @@ def profile_train_step(torch, np, batch: dict) -> dict:
     and idle share, host-to-device copies, kernel count, the top kernels)."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as tprofile
+
+    from gonova_tts_tpu_torch.utils.prof import device_events
 
     from gonova_tts_tpu_torch.config import ModelConfig
     from gonova_tts_tpu_torch.models import aligner, tts
@@ -2058,6 +2006,8 @@ def g2p_idle_share(torch, model, x, y, ms_per_step: float) -> dict:
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as tprofile
 
+    from gonova_tts_tpu_torch.utils.prof import device_events
+
     from gonova_tts_tpu_torch.tools import train_g2p
 
     twin = copy.deepcopy(model)
@@ -2210,6 +2160,95 @@ def run_grade(torch, np, report, corpus: str, dev="cuda"):
     return launches, checks
 
 
+# ------------------------------------------------------------------ phase 15
+
+# tools.align_diag on the demo corpus: 200 steps (cut from the JAX tool's 2,000; 40 s
+# on an H100 at 157.5 ms a step), graded every 50 so the first loss read is step 49's.
+ALIGN_STEPS = 200
+ALIGN_EVAL_EVERY = 50
+COVERAGE_EXACT, COVERAGE_MORPH = 0.97, 0.2  # tests/test_morph.py::test_coverage_harness_runs
+FLOOR_MIN, LEN_RATIO = 0.1, (0.7, 1.3)  # tests/test_train_data.py::test_jitter_floor_tool
+
+
+def run_tools(torch, np, report, corpus: str, dev="cuda"):
+    """Phase 15: the repo's four diagnostics, ported, on the card: g2p_coverage on its
+    sample, jitter_floor and align_diag on the demo corpus (the train phase's), then
+    ws_smoke on the demo checkpoint in bf16 with both kernel switches on, registering
+    the corpus' ref_spk_mid.wav, --repeat 2, once over each transport. Launch counts
+    from 0 at the phase's start, read at its end (only ws_smoke serves)."""
+    from gonova_tts_tpu_torch import ops
+    from gonova_tts_tpu_torch.tools import align_diag, g2p_coverage, jitter_floor, ws_smoke
+
+    t_phase = time.perf_counter()
+    out, checks = {}, {}
+    ops.reset_launch_counts()
+
+    t0 = time.perf_counter()
+    cov = {k: v for k, v in g2p_coverage.evaluate(g2p_coverage.parse_args([])).items() if k != "misses"}
+    out["g2p_coverage"] = {**cov, "wall_s": time.perf_counter() - t0}
+    print("tools: g2p_coverage " + json.dumps(out["g2p_coverage"]), flush=True)
+    checks["tools_coverage_exact"] = cov["exact_coverage"] >= COVERAGE_EXACT
+    checks["tools_coverage_morph"] = cov["morph"] > COVERAGE_MORPH
+
+    t0 = time.perf_counter()
+    floor = jitter_floor.evaluate(jitter_floor.parse_args(["--corpus", corpus, "--device", dev]))
+    out["jitter_floor"] = {**floor, "wall_s": time.perf_counter() - t0}
+    print("tools: jitter_floor " + json.dumps(out["jitter_floor"]), flush=True)
+    checks["tools_jitter_floors"] = "error" not in floor and all(
+        floor[k] > FLOOR_MIN for k in ("floor_alt_jitter_mel_l1", "floor_mean_dur_mel_l1")) and all(
+        LEN_RATIO[0] < floor[k] < LEN_RATIO[1] for k in ("alt_len_ratio", "mean_len_ratio"))
+
+    t0 = time.perf_counter()
+    align = align_diag.run(
+        align_diag.parse_args(["--corpus", corpus, "--steps", str(ALIGN_STEPS), "--eval-every",
+                               str(ALIGN_EVAL_EVERY), "--device", dev]),
+        emit=lambda line: print("tools: align_diag " + line, flush=True),
+    )
+    out["align_diag"] = {**align, "wall_s": time.perf_counter() - t0}
+    print("tools: align_diag readings " + json.dumps({k: v for k, v in out["align_diag"].items() if k != "lines"}),
+          flush=True)
+    losses = [x["loss"] for x in align["lines"] if x["loss"] is not None]
+    checks["tools_align_losses_finite"] = bool(losses) and all(np.isfinite(losses))
+    checks["tools_align_loss_falls"] = len(losses) >= 2 and losses[-1] < losses[0]
+
+    # ws_smoke over the transport the host offers (aiohttp's test server where aiohttp
+    # imports), then over the in-memory socket with aiohttp's test utilities hidden.
+    ws, saved = {}, sys.modules.get("aiohttp.test_utils")
+    for transport in ("installed", "memory"):
+        if transport == "memory":
+            sys.modules["aiohttp.test_utils"] = None  # its import fails: no aiohttp
+        t0 = time.perf_counter()
+        try:
+            ws[transport] = ws_smoke.run(ws_smoke.parse_args(
+                ["--checkpoint", DEMO, "--corpus", corpus, "--repeat", "2", "--device", dev]),
+                engine_config("bfloat16", kernels=True))
+        finally:
+            if saved is None:
+                sys.modules.pop("aiohttp.test_utils", None)
+            else:
+                sys.modules["aiohttp.test_utils"] = saved
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        out[f"ws_smoke_{transport}"] = {**ws[transport], "phase_wall_s": time.perf_counter() - t0}
+        print(f"tools: ws_smoke {transport} " + json.dumps(out[f"ws_smoke_{transport}"]), flush=True)
+        checks[f"tools_ws_health_{transport}"] = ws[transport]["health"] == "healthy" and ws[transport]["backend"] == dev
+        checks[f"tools_ws_signal_{transport}"] = (ws[transport]["finite"] and ws[transport]["rms"] > NOT_SILENT_RMS
+                                                  and ws[transport]["chunks"] >= 1)
+    launches = ops.launch_counts()
+    first, mem = ws["installed"], ws["memory"]
+    checks["tools_ws_memory_transport"] = mem["transport"] == "memory"
+    checks["tools_ws_transports_agree"] = all(first[k] == mem[k] for k in ("chunks", "final_chunk_id", "audio_s")) and all(
+        abs(first[k] - mem[k]) <= 1.0 / 32767 for k in ("rms", "peak"))
+    if dev == "cuda":
+        checks["tools_ws_launches_serving_kernels"] = all(
+            launches.get(k, 0) > 0 for k in ("transformer_stack", "vocos_stack", "mel_spectrogram"))
+    out["launches"] = launches
+    out["phase_s"] = time.perf_counter() - t_phase
+    out["checks"] = checks
+    report["tools"] = out
+    return launches, checks
+
+
 def main() -> None:
     only_parallel = sys.argv[1:] == ["--phase", "parallel"]  # the cross-card phase alone, on a multi-card machine
     try:
@@ -2273,7 +2312,7 @@ def main() -> None:
     print("service: " + json.dumps(report["service"]), flush=True)
     parity_launches, parity_checks = run_parity(torch, np, report)
     print("parity: " + json.dumps(report["parity"]), flush=True)
-    corpus_dir = tempfile.TemporaryDirectory()  # the demo corpus: the train phase writes it, grade reads it
+    corpus_dir = tempfile.TemporaryDirectory()  # the demo corpus: the train phase writes it, grade and tools read it
     corpus = corpus_dir.name
     train_launches, trained_serve_launches, train_checks = run_train(torch, np, report, smi, corpus)
     print("train: " + json.dumps(report["train"]), flush=True)
@@ -2292,8 +2331,11 @@ def main() -> None:
     g2p_launches, g2p_checks = run_g2p(torch, np, report, smi)
     print("g2p: " + json.dumps(report["g2p"]), flush=True)
     grade_launches, grade_checks = run_grade(torch, np, report, corpus)
-    corpus_dir.cleanup()
     print("grade: " + json.dumps({k: v for k, v in report["grade"].items() if not k.startswith(("eval", "clone"))}),
+          flush=True)
+    tools_launches, tools_checks = run_tools(torch, np, report, corpus)
+    corpus_dir.cleanup()
+    print("tools: " + json.dumps({k: v for k, v in report["tools"].items() if not k.startswith(("align", "ws"))}),
           flush=True)
     mel_voice = next(c for c in mel_cs if c["case"] == "voice B=1 T=239872")
     print("mel kernel at the voice path's shape: " + json.dumps(
@@ -2313,7 +2355,7 @@ def main() -> None:
             "at": f"{main_case} {dtype}", **extra,
             "launches_hifigan_path": hifigan_launches.get(name, 0), "launches_gan_phase": gan_launches.get(name, 0),
             "launches_dp_path": dp_launches.get(name, 0), "launches_g2p_phase": g2p_launches.get(name, 0),
-            "launches_grade_path": grade_launches.get(name, 0),
+            "launches_grade_path": grade_launches.get(name, 0), "launches_tools_phase": tools_launches.get(name, 0),
             "cases": cases,
         }
 
@@ -2346,7 +2388,7 @@ def main() -> None:
            if not c["ok"]]
     bad += [k for k, v in {**kernel_checks, **checks, **voice_checks, **service_checks, **parity_checks,
                            **train_checks, **hifigan_checks, **gan_checks, **parallel_checks, **native_checks,
-                           **g2p_checks, **grade_checks}.items() if not v]
+                           **g2p_checks, **grade_checks, **tools_checks}.items() if not v]
     bad += [f"{k['name']} never launched on its path" for k in kernels if k["launches"] <= 0]
     if bad:
         print(json.dumps({"kernels": kernels}), flush=True)

@@ -106,16 +106,24 @@ class OptState:
         """One device: the gradients are complete."""
 
     def grad_norm(self, grads: List[torch.Tensor]) -> torch.Tensor:
-        return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        return global_norm(grads)
 
     def apply(self) -> None:
         grads = [p.grad for p in self.params]
-        norm = self.grad_norm(grads)
-        max_norm = self.optimizer.max_norm
-        scale = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
-        torch._foreach_mul_(grads, scale)
+        clip_by_global_norm_(grads, self.grad_norm(grads), self.optimizer.max_norm)
         self.adamw.step()
         self.lr_schedule.step()
+
+
+def global_norm(grads: List[torch.Tensor]) -> torch.Tensor:
+    """optax.global_norm: the L2 norm of all the tensors together."""
+    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+
+
+def clip_by_global_norm_(grads: List[torch.Tensor], norm: torch.Tensor, max_norm: float) -> None:
+    """optax.clip_by_global_norm in place: g * (max_norm / norm) when norm >= max_norm."""
+    scale = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
+    torch._foreach_mul_(grads, scale)
 
 
 class ShardedOptState(OptState):

@@ -3,7 +3,7 @@
 Each engine owns one `Timers` (rolling percentile summaries, thread-safe); its
 summary is part of `TTSEngine.get_stats()`. `device_trace` is the counterpart of
 the JAX package's `jax.profiler` hook: a `torch.profiler` trace of a block, written
-as a Chrome trace for a timeline viewer.
+as a Chrome trace for a timeline viewer; `device_events` reads a trace's device side.
 """
 
 from __future__ import annotations
@@ -13,7 +13,7 @@ import os
 import threading
 import time
 from collections import defaultdict, deque
-from typing import Dict, Iterator, Optional
+from typing import Dict, Iterator, List, Optional
 
 import numpy as np
 
@@ -71,3 +71,14 @@ def device_trace(log_dir: Optional[str]) -> Iterator[None]:
         yield
     n = len([f for f in os.listdir(log_dir) if f.startswith(f"trace_{os.getpid()}_")])
     prof.export_chrome_trace(os.path.join(log_dir, f"trace_{os.getpid()}_{n}.json"))
+
+
+def device_events(prof) -> List:
+    """A torch.profiler trace's device events (kernels and copies), largest device
+    time first. A user-annotated range (an optimizer's step) also shows as a device
+    event spanning its kernels: it is left out, or its kernels would count twice."""
+    from torch.autograd import DeviceType
+
+    return sorted((e for e in prof.key_averages() if e.device_type == DeviceType.CUDA
+                   and e.self_device_time_total > 0 and not getattr(e, "is_user_annotation", False)),
+                  key=lambda e: e.self_device_time_total, reverse=True)

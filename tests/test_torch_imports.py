@@ -43,3 +43,4 @@ def test_scan_sees_the_whole_port():
     assert {"vocoder.py", "vocoder_folded.py", "_jax_prng.py"} <= names
     assert {"multi.py", "mesh.py", "tp.py", "launch.py"} <= names
     assert {"train_g2p.py", "g2p_eval.py", "eval_checkpoint.py", "clone_eval.py", "prof.py"} <= names
+    assert {"align_diag.py", "jitter_floor.py", "ws_smoke.py", "g2p_coverage.py", "memory_socket.py"} <= names
