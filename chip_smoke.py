@@ -139,10 +139,21 @@ Phases; any failure exits non-zero before the final line:
      seconds equal, rms and peak within one int16 LSB; TTFA, steady TTFA and the
      realtime factor as readings). Counts from 0 at the phase's start, read at its
      end: the transformer, Vocos and mel kernels launched.
- 16. output: a `kernels` JSON line (every kernel with its launches on each path,
+ 16. bench: the port's measurement tools at full width (`bench:` lines and the suite's
+     `{"config": ...}` lines). tools.bench at ModelConfig(), batch 16, bf16 (the default
+     config: no stack kernel switched on): its detail line and its four-key contract
+     line, the value finite and positive, TTFA p50 <= p90; tools.mfu on the two
+     throughputs bench printed (both MFUs in (0, 100) %); the five bench_suite configs
+     on the production config (audio in 1-4, batching seen in 2, no new device shape in
+     4, TTFA in 5); bench_tstack's three cases and bench_acoustic's kernel on/off A/B
+     (each kernel output within KERNEL_BF16_BOUND of the plain path, and
+     `transformer_stack` launched by each), bench_vocos_attr and bench_hifigan (every
+     time positive). Counts from 0 just before each tool, read just after; repetition
+     cuts at BENCH_REPS.
+ 17. output: a `kernels` JSON line (every kernel with its launches on each path,
      `launches_hifigan_path`, `launches_gan_phase`, `launches_dp_path`,
-     `launches_g2p_phase`, `launches_grade_path` and `launches_tools_phase`
-     included), the nvidia-smi line, then the `ok` JSON line.
+     `launches_g2p_phase`, `launches_grade_path`, `launches_tools_phase` and
+     `launches_bench_phase` included), the nvidia-smi line, then the `ok` JSON line.
 
 Bounds (max |error| unless named):
   kernels f32: KERNEL_F32_BOUND (summation order through up to 8 layers);
@@ -2249,6 +2260,92 @@ def run_tools(torch, np, report, corpus: str, dev="cuda"):
     return launches, checks
 
 
+# ------------------------------------------------------------------ phase 16
+
+# Repetition cuts that keep the phase near two minutes (the tools' own defaults in
+# brackets): bench's timed repeats 3 (5); bench_tstack's repeats 3 (5); bench_acoustic's
+# K 16 (64) and repeats 3 (5). The suite, bench_vocos_attr and bench_hifigan run as
+# their tools do.
+BENCH_REPS = 3
+TSTACK_REPEATS = 3
+ACOUSTIC_K, ACOUSTIC_REPEATS = 16, 3
+
+
+def run_bench(torch, np, report, dev="cuda"):
+    """Phase 16: the port's measurement tools at full width. tools.bench (ModelConfig(),
+    batch 16, bf16: the default config, which switches no stack kernel on), tools.mfu on
+    its two throughputs, the suite's five configs at the production config, then the four
+    microbenchmarks; bench_tstack's and bench_acoustic's kernel outputs against the plain
+    path within KERNEL_BF16_BOUND. Launch counts from 0 just before each tool, read just
+    after: both microbenchmarks of the stack must launch it."""
+    from gonova_tts_tpu_torch import ops
+    from gonova_tts_tpu_torch.config import EngineConfig, ModelConfig
+    from gonova_tts_tpu_torch.tools import (
+        bench, bench_acoustic, bench_hifigan, bench_suite, bench_tstack, bench_vocos_attr, mfu,
+    )
+
+    t_phase = time.perf_counter()
+    out, checks, launches = {}, {}, {}
+
+    def counted(name, fn, *args, **kwargs):
+        ops.reset_launch_counts()
+        t0 = time.perf_counter()
+        result = fn(*args, **kwargs)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        launches[name] = ops.launch_counts()
+        out[f"{name}_wall_s"] = time.perf_counter() - t0
+        return result
+
+    detail, line = counted("bench", bench.run, ModelConfig(), EngineConfig(), dev, reps=BENCH_REPS)
+    out["bench"] = {"detail": detail, "result": line}
+    print("bench: " + json.dumps({"detail": detail}), flush=True)
+    print("bench: " + json.dumps(line), flush=True)
+    checks["bench_contract_keys"] = set(line) == {"metric", "value", "unit", "vs_baseline"}
+    checks["bench_value_positive"] = bool(np.isfinite(line["value"]) and line["value"] > 0)
+    checks["bench_ttfa_positive"] = 0 < detail["ttfa_p50_ms"] <= detail["ttfa_p90_ms"]
+
+    peak = mfu.peak_tflops(torch.device(dev), None)
+    out["mfu"] = mfu.report(ModelConfig(), EngineConfig(), detail["one_graph"], detail["two_stage_compute"], peak)
+    print("bench: mfu " + json.dumps(out["mfu"]), flush=True)
+    rows = out["mfu"]["rows"]
+    checks["bench_mfu_in_range"] = len(rows) == 2 and all(0 < r["mfu_pct"] < 100 for r in rows)
+
+    eng = counted("suite_load", bench_suite.make_engine, False, dev)
+    suite = {n: counted(f"suite_{n}", fn, eng) for n, fn in bench_suite.BENCHES.items()}
+    del eng
+    out["suite"] = suite
+    checks["bench_suite_audio"] = all(suite[n]["audio_s"] > 0 for n in (1, 2, 3, 4))
+    checks["bench_suite_batched"] = suite[2]["max_batch_seen"] > 1
+    checks["bench_suite_no_recompiles"] = suite[4]["recompiles"] == 0
+    checks["bench_suite_ttfa"] = 0 < suite[5]["p50_ttfa_ms"] <= suite[5]["p90_ttfa_ms"]
+
+    out["bench_tstack"] = counted("bench_tstack", bench_tstack.run, dev, repeats=TSTACK_REPEATS)
+    out["bench_acoustic"] = counted("bench_acoustic", bench_acoustic.run, dev, k=ACOUSTIC_K,
+                                    repeats=ACOUSTIC_REPEATS)
+    print("bench: bench_acoustic " + json.dumps(out["bench_acoustic"]), flush=True)
+    out["bench_vocos_attr"] = counted("bench_vocos_attr", bench_vocos_attr.run, dev)
+    out["bench_hifigan"] = counted("bench_hifigan", bench_hifigan.run, dev)
+    checks["bench_tstack_within_bound"] = all(
+        c["max_abs_err"] <= KERNEL_BF16_BOUND for c in out["bench_tstack"].values())
+    checks["bench_acoustic_within_bound"] = out["bench_acoustic"]["acoustic_max_abs_err"] <= KERNEL_BF16_BOUND
+    if dev == "cuda":
+        checks["bench_tstack_launched"] = launches["bench_tstack"].get("transformer_stack", 0) > 0
+        checks["bench_acoustic_launched"] = launches["bench_acoustic"].get("transformer_stack", 0) > 0
+    checks["bench_times_positive"] = all(
+        v > 0 for tool in ("bench_vocos_attr", "bench_hifigan") for k, v in out[tool].items()
+        if k.endswith("_ms") and not k.endswith("device_ms"))
+    total = {}
+    for counts in launches.values():
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+    out["launches"], out["launches_by_tool"] = total, launches
+    out["phase_s"] = time.perf_counter() - t_phase
+    out["checks"] = checks
+    report["bench"] = out
+    return total, checks
+
+
 def main() -> None:
     only_parallel = sys.argv[1:] == ["--phase", "parallel"]  # the cross-card phase alone, on a multi-card machine
     try:
@@ -2337,6 +2434,9 @@ def main() -> None:
     corpus_dir.cleanup()
     print("tools: " + json.dumps({k: v for k, v in report["tools"].items() if not k.startswith(("align", "ws"))}),
           flush=True)
+    bench_launches, bench_checks = run_bench(torch, np, report)
+    print("bench: " + json.dumps({k: v for k, v in report["bench"].items() if k.endswith("_wall_s")
+                                  or k in ("launches", "launches_by_tool", "checks", "phase_s")}), flush=True)
     mel_voice = next(c for c in mel_cs if c["case"] == "voice B=1 T=239872")
     print("mel kernel at the voice path's shape: " + json.dumps(
         {k: mel_voice[k] for k in ("ms", "device_ms", "plain_ms", "matmul_ms", "bound_ms", "gflop")}), flush=True)
@@ -2356,6 +2456,7 @@ def main() -> None:
             "launches_hifigan_path": hifigan_launches.get(name, 0), "launches_gan_phase": gan_launches.get(name, 0),
             "launches_dp_path": dp_launches.get(name, 0), "launches_g2p_phase": g2p_launches.get(name, 0),
             "launches_grade_path": grade_launches.get(name, 0), "launches_tools_phase": tools_launches.get(name, 0),
+            "launches_bench_phase": bench_launches.get(name, 0),
             "cases": cases,
         }
 
@@ -2388,7 +2489,7 @@ def main() -> None:
            if not c["ok"]]
     bad += [k for k, v in {**kernel_checks, **checks, **voice_checks, **service_checks, **parity_checks,
                            **train_checks, **hifigan_checks, **gan_checks, **parallel_checks, **native_checks,
-                           **g2p_checks, **grade_checks, **tools_checks}.items() if not v]
+                           **g2p_checks, **grade_checks, **tools_checks, **bench_checks}.items() if not v]
     bad += [f"{k['name']} never launched on its path" for k in kernels if k["launches"] <= 0]
     if bad:
         print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,11 +1,13 @@
-"""Command-line interface of the port: serve / synth / train / voices / info.
+"""Command-line interface of the port: serve / synth / bench / train / voices / info.
 
 The counterpart of `gonova_tts_tpu/cli.py`, over the port's modules. The device is
-the config file's `model.device` ("cuda" unless the file says "cpu"). `bench` is
-not ported yet.
+the config file's `model.device` ("cuda" unless the file says "cpu"); `bench` runs
+`tools.bench` in process (a module of the package, so an installed wheel has it too)
+on CUDA unless `--device cpu`.
 
     gonova-tts-torch serve [--port 8002]          # or python -m gonova_tts_tpu_torch.cli
     gonova-tts-torch synth "Hello." -o hello.wav [--voice-wav ref.wav]
+    gonova-tts-torch bench [--device cpu]
     gonova-tts-torch train --demo-corpus corpus_r3/ --checkpoint-dir ckpts/ --steps 200 [--gan]
 """
 
@@ -59,6 +61,12 @@ def cmd_synth(args: argparse.Namespace) -> int:
         file=sys.stderr,
     )
     return 0
+
+
+def cmd_bench(args: argparse.Namespace) -> int:
+    from .tools import bench
+
+    return bench.main([] if args.device is None else ["--device", args.device])
 
 
 def cmd_train(args: argparse.Namespace) -> int:
@@ -160,6 +168,10 @@ def main(argv=None) -> int:
     p.add_argument("--model-path", default=None, dest="model_path",
                    help="checkpoint: a .npz, or a training root (its newest step)")
     p.set_defaults(fn=cmd_synth)
+
+    p = sub.add_parser("bench", help="run the headline benchmark (tools/bench.py)")
+    p.add_argument("--device", default=None, help="cuda (default) or cpu")
+    p.set_defaults(fn=cmd_bench)
 
     p = sub.add_parser("train", help="train the pipeline on one device (see train/loop.py)")
     p.add_argument("--manifest", default=None)

@@ -8,4 +8,11 @@
   jitter_floor     the irreducible mel-L1 floor of the held-out grades
   ws_smoke         a checkpoint served through the WS protocol: TTFA, realtime factor, signal
   g2p_coverage     how running text resolves through the frontend's tiers (host only)
+  bench            the headline benchmark: audio-s/s at batch 16 and TTFA (`gonova-tts-torch bench`)
+  bench_suite      the five workload configs: latency, batching, long form, voices, request rate
+  mfu              model FLOP utilization of the bench's two modes
+  bench_tstack     the transformer-stack kernel against the plain stack
+  bench_acoustic   the acoustic pass and the pipeline with `acoustic_pallas` off and on
+  bench_vocos_attr where a Vocos pass spends its time
+  bench_hifigan    NovaGAN's two layouts, its MRF stages, a fixed-FLOP conv sweep
 """

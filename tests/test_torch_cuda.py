@@ -567,3 +567,38 @@ def test_native_runtime_builds_and_loads(setup):
     assert native.native_available(), native.native_error()
     pcm = np.arange(-4, 4, dtype=np.int16)
     np.testing.assert_array_equal(native.i16_to_f32(pcm), native.i16_to_f32_numpy(pcm))
+
+
+@pytest.mark.gpu
+def test_bench_tool_prints_a_positive_value(setup):
+    """tools.bench at a small config on the card: the contract's four keys, a
+    positive value, and a device reading beside each mode's wall time."""
+    from gonova_tts_tpu_torch.config import EngineConfig
+    from gonova_tts_tpu_torch.tools import bench
+
+    cfg = ModelConfig(d_model=64, n_heads=4, d_ff=128, encoder_layers=2, decoder_layers=2, speaker_dim=32,
+                      vocos_dim=128, vocos_ff=256, vocos_layers=2)
+    detail, line = bench.run(cfg, EngineConfig(), "cuda", reps=1)
+    assert set(line) == {"metric", "value", "unit", "vs_baseline"} and line["value"] > 0
+    assert detail["dtype"] == "bf16" and detail["device"] == torch.cuda.get_device_name(0)
+    for mode in ("one_graph", "two_stage"):
+        assert 0 < detail[f"{mode}_device_ms"] and 0 <= detail[f"{mode}_idle"] < 1
+
+
+@pytest.mark.gpu
+def test_bench_tstack_kernel_is_within_its_bound(setup):
+    """tools.bench_tstack at a small shape, full and local attention: positive times,
+    the kernel launched, its output within the bf16 bound of its plain twin. A device
+    reading is positive, or None where every torch.profiler trace came back empty;
+    never 0."""
+    from gonova_tts_tpu_torch.tools import bench_tstack
+
+    before = ops.launch_counts()["transformer_stack"]
+    res = bench_tstack.run("cuda", d=64, heads=4, ff=128, n_layers=2,
+                           cases=(("full", 2, 64, None), ("local", 2, 128, 16)), k=2, repeats=1)
+    assert ops.launch_counts()["transformer_stack"] > before
+    readings = [case[k] for case in res.values() for k in ("plain_device_ms", "fused_device_ms")]
+    assert all(r is None or r > 0 for r in readings) and any(r is not None for r in readings)
+    for case in res.values():
+        assert case["plain_ms"] > 0 and case["fused_ms"] > 0
+        assert case["max_abs_err"] < 0.1

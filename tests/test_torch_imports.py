@@ -44,3 +44,5 @@ def test_scan_sees_the_whole_port():
     assert {"multi.py", "mesh.py", "tp.py", "launch.py"} <= names
     assert {"train_g2p.py", "g2p_eval.py", "eval_checkpoint.py", "clone_eval.py", "prof.py"} <= names
     assert {"align_diag.py", "jitter_floor.py", "ws_smoke.py", "g2p_coverage.py", "memory_socket.py"} <= names
+    assert {"bench.py", "bench_suite.py", "mfu.py", "bench_tstack.py", "bench_acoustic.py", "bench_vocos_attr.py",
+            "bench_hifigan.py", "_bench_util.py"} <= names
