@@ -1977,8 +1977,8 @@ def run_native(torch, np, report, dev="cuda"):
     eng = TTSEngine(cfg)
     eng.load(warmup=False)
     host = []
-    unpack = eng._unpack
-    eng._unpack = lambda audio: host.append(audio.cpu().numpy()) or unpack(audio)
+    readback = eng._readback
+    eng._readback = lambda audio: host.append(audio.cpu().numpy()) or readback(audio)
     served = eng.synthesize_batch([SENTENCES[0]])[0]
     del eng
     n = served.size

@@ -195,6 +195,12 @@ class MonitoringConfig(_SectionModel):
 
     enable_health_endpoint: bool = True
     enable_metrics_endpoint: bool = True
+    # Spans into an in-memory ring, and `record_function` ranges while a
+    # torch.profiler records (utils/prof.py); off, only the histograms of the
+    # engine's passes, embeddings and stream steps fill. In a YAML config:
+    # `trace_spans: true` under `monitoring:`. Either way
+    # /metrics?format=prometheus carries `gonova_tts_span_seconds` histograms.
+    trace_spans: bool = False
 
 
 class EncodingConfig(_SectionModel):

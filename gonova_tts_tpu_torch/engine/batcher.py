@@ -7,12 +7,17 @@ padded batch per device pass (up to `max_batch`): a batch costs the device littl
 than a single request. The port's own copy of `gonova_tts_tpu/engine/batcher.py`.
 
 Latency shape: p50 TTFA ≈ admission window + one acoustic pass + one vocoder window.
+
+Spans (the engine's tracer): `frontend.text_to_ids` per sentence; `batcher.wait`
+per sentence, from its queue put to the start of the engine call for its bucket
+group (`pass_id` names the `engine.pass` that served it); `batcher.admission` per
+window, from its first item to the window closed. A sentence's spans take the
+caller's open span (its request's) as parent; the passes take the window's.
 """
 
 from __future__ import annotations
 
 import asyncio
-import functools
 import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
@@ -26,14 +31,20 @@ from .engine import TTSEngine
 logger = get_logger("gonova.batcher")
 
 
+def _frontend(tracer, text: str) -> List[int]:
+    with tracer.span("frontend.text_to_ids"):
+        return text_to_ids(text)
+
+
 @dataclass
 class _Pending:
     text: str
     speaker: Optional[np.ndarray]
     exaggeration: float
     future: asyncio.Future = field(repr=False, default=None)
-    enqueued_at: float = 0.0
+    enqueued_at: int = 0  # perf_counter_ns at the queue put: batcher.wait's start
     ids: List[int] = field(default_factory=list)  # frontend output, computed once
+    parent: object = field(repr=False, default=None)  # the caller's span
 
     @property
     def n_tokens(self) -> int:
@@ -46,6 +57,7 @@ class DynamicBatcher:
     def __init__(self, engine: TTSEngine, max_batch: Optional[int] = None,
                  window_ms: Optional[float] = None):
         self.engine = engine
+        self.tracer = engine.tracer
         self.max_batch = max_batch or engine.ecfg.max_batch
         self.window_s = (window_ms if window_ms is not None else engine.ecfg.batch_window_ms) / 1000.0
         self._queue: asyncio.Queue = asyncio.Queue()
@@ -93,14 +105,15 @@ class DynamicBatcher:
         loop = asyncio.get_event_loop()
         # Frontend (normalize + G2P, possibly the neural-G2P decode for OOV words)
         # runs off the event loop, and exactly once — the ids ride to the engine.
-        ids = await loop.run_in_executor(None, text_to_ids, text)
+        ids = await asyncio.to_thread(_frontend, self.tracer, text)
         item = _Pending(
             text=text,
             speaker=speaker,
             exaggeration=exaggeration,
             future=loop.create_future(),
-            enqueued_at=time.time(),
+            enqueued_at=time.perf_counter_ns(),
             ids=list(ids),
+            parent=self.tracer.current(),
         )
         await self._queue.put(item)
         # stop() may have finished draining while the frontend ran in the
@@ -117,6 +130,7 @@ class DynamicBatcher:
             except asyncio.CancelledError:
                 break
             batch: List[_Pending] = [first]
+            admission = self.tracer.begin("batcher.admission")
             deadline = time.time() + self.window_s
             cancelled = False
             while len(batch) < self.max_batch:
@@ -139,7 +153,6 @@ class DynamicBatcher:
                         p.future.set_exception(RuntimeError("batcher stopped"))
                 raise asyncio.CancelledError
 
-            loop = asyncio.get_event_loop()
             try:
                 # Bucket-aware dispatch: the engine pads every request in a device pass
                 # to the pass's single token bucket, so a 5-token and a 40-token sentence
@@ -153,19 +166,25 @@ class DynamicBatcher:
                     ).append(p)
                 if len(groups) > 1:
                     self.metrics["bucket_splits"] += 1
+                if admission:
+                    self.tracer.finish(admission, items=len(batch), groups=len(groups))
 
-                for group in groups.values():
+                for bucket, group in groups.items():
+                    pass_id = self.tracer.new_id()
+                    if self.tracer.on:
+                        for p in group:
+                            self.tracer.record("batcher.wait", p.enqueued_at, parent=p.parent,
+                                               pass_id=pass_id, token_bucket=bucket)
                     try:
-                        results = await loop.run_in_executor(
-                            None,
-                            functools.partial(
+                        with self.tracer.within(admission):
+                            results = await asyncio.to_thread(
                                 self.engine.synthesize_batch,
                                 [p.text for p in group],
                                 [p.speaker for p in group],
                                 [p.exaggeration for p in group],
                                 id_lists=[p.ids for p in group],
-                            ),
-                        )
+                                pass_id=pass_id,
+                            )
                         for p, r in zip(group, results):
                             if not p.future.done():
                                 p.future.set_result(r)

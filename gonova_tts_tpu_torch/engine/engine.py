@@ -36,7 +36,7 @@ from __future__ import annotations
 import logging
 import threading
 import time
-from contextlib import contextmanager
+from contextlib import ExitStack, contextmanager
 from typing import Iterator, List, Optional, Sequence
 
 import numpy as np
@@ -51,7 +51,7 @@ from ..models import params as params_mod
 from ..models import tts
 from ..text import batch_to_bucket, pick_bucket, segment_text, text_to_ids
 from ..ops.mel_spectrogram import mel_spectrogram as mel_spectrogram_fused
-from ..utils import Timers, native, read_wav
+from ..utils import Tracer, native, read_wav
 from . import multi
 
 logger = logging.getLogger("gonova_tts_tpu_torch.engine")
@@ -77,7 +77,8 @@ class TTSEngine:
         self.compute_dtype = (
             torch.bfloat16 if self.mcfg.compute_dtype == "bfloat16" else torch.float32
         )
-        self.timers = Timers()
+        # The span recorder the service and the batcher share (utils/prof.py).
+        self.tracer = Tracer(self.config.monitoring.trace_spans)
         self._lock = threading.Lock()  # device work is serialized per engine
         self._stats_lock = threading.Lock()
         self._busy_since: float = 0.0
@@ -102,12 +103,14 @@ class TTSEngine:
     def _device_section(self):
         """Device-lock holder that timestamps itself, so health_check can tell busy
         from wedged."""
-        with self._lock:
+        with self.tracer.span("engine.lock_wait"):
+            self._lock.acquire()
+        try:
             self._busy_since = time.time()
-            try:
-                yield
-            finally:
-                self._busy_since = 0.0
+            yield
+        finally:
+            self._busy_since = 0.0
+            self._lock.release()
 
     # ------------------------------------------------------------ loading
 
@@ -183,8 +186,12 @@ class TTSEngine:
             return torch.clamp(wav * 32767.0, -32767.0, 32767.0).to(torch.int16)
         return wav
 
-    def _unpack(self, audio: torch.Tensor) -> np.ndarray:
-        host = audio.cpu().numpy()
+    def _readback(self, audio: torch.Tensor) -> np.ndarray:
+        """One blocking device→host copy."""
+        with self.tracer.span("engine.readback"):
+            return audio.cpu().numpy()
+
+    def _to_f32(self, host: np.ndarray) -> np.ndarray:
         return native.i16_to_f32(host) if self.ecfg.transfer_dtype == "int16" else host.astype(np.float32)
 
     def _tensors(self, tokens, mask, spk, exagg, device=None):
@@ -285,16 +292,20 @@ class TTSEngine:
         if not self.is_loaded:
             raise RuntimeError("Engine not loaded. Call load() first")
         fused = self.ecfg.mel_pallas and self.device.type == "cuda"
-        with self._device_section(), self.timers.track("embed_voice_device"), torch.inference_mode():
-            buf, valid = self.analysis_buffer(audio, sr)
-            mel = (mel_spectrogram_fused if fused else mel_spectrogram)(
-                buf, sr=self.sample_rate, n_fft=self.mcfg.n_fft, hop_length=self.hop,
-                win_length=self.mcfg.win_length, n_mels=self.mcfg.n_mels, fmin=self.mcfg.fmin,
-                fmax=self.mcfg.fmax,
-            )
-            mask = (torch.arange(mel.shape[1], device=self.device)[None] < valid).float()
-            emb = tts.embed_speaker(self.params, mel, mask, dtype=self.compute_dtype)
-            return emb[0].float().cpu().numpy()
+        span = self.tracer.span
+        with self._device_section(), span("engine.embed_voice"), torch.inference_mode():
+            with span("engine.embed.resample"):
+                buf, valid = self.analysis_buffer(audio, sr)
+            with span("engine.embed.mel"):
+                mel = (mel_spectrogram_fused if fused else mel_spectrogram)(
+                    buf, sr=self.sample_rate, n_fft=self.mcfg.n_fft, hop_length=self.hop,
+                    win_length=self.mcfg.win_length, n_mels=self.mcfg.n_mels, fmin=self.mcfg.fmin,
+                    fmax=self.mcfg.fmax,
+                )
+            with span("engine.embed.encoder"):
+                mask = (torch.arange(mel.shape[1], device=self.device)[None] < valid).float()
+                emb = tts.embed_speaker(self.params, mel, mask, dtype=self.compute_dtype)
+            return self._readback(emb[0].float())
 
     def embed_voice_file(self, path: str) -> np.ndarray:
         audio, sr = read_wav(path)
@@ -311,9 +322,12 @@ class TTSEngine:
         speakers: Optional[Sequence[np.ndarray]] = None,
         exaggerations: Optional[Sequence[float]] = None,
         id_lists: Optional[Sequence[Sequence[int]]] = None,
+        pass_id: int = 0,
     ) -> List[np.ndarray]:
         """One chunk of text per request in a single device pass; one float32
-        waveform per input. `id_lists` takes precomputed token ids."""
+        waveform per input. `id_lists` takes precomputed token ids; `pass_id`, the
+        id of the pass's `engine.pass` span, drawn by a caller that names the pass
+        in its own spans."""
         if not self.is_loaded:
             raise RuntimeError("Engine not loaded. Call load() first")
         if not texts:
@@ -350,40 +364,21 @@ class TTSEngine:
         if exaggerations is not None:
             exagg[:b] = np.asarray(exaggerations, np.float32)
 
-        dtype = self.compute_dtype
-        # Every shard is enqueued before any is read back, so the devices overlap.
-        with self._device_section(), self.timers.track("synth_batch_device"), torch.inference_mode():
-            shards = self._shards(tokens, mask, spk, exagg)
-            if self.two_stage_enabled:
-                encs = [tts.encode_acoustic(rep, *args, self.mcfg, dtype) for rep, args in shards]
-                # The one [B] readback; the frame bucket covers the whole batch.
-                total_frames = np.concatenate([e["total_frames"].cpu().numpy() for e in encs])
-                t_full = int(bucket * self.mcfg.max_frames_per_token)
-                need = int(total_frames.max()) + self.ecfg.stream_context_frames
-                fb = min((x for x in self.ecfg.vocode_frame_buckets if x >= need), default=t_full)
-                fb = min(fb, t_full)
-                if (batch_bucket, bucket, fb) not in self._vocode_shapes_seen:
-                    self._vocode_shapes_seen.add((batch_bucket, bucket, fb))
-                    self.stats["compiles"] += 1
-                packed = [
-                    self._pack(tts.decode_vocode(
-                        rep, e["enc"], e["spk"], e["durations"], args[1], fb, self.mcfg,
-                        dtype, local_attention_from=t_full,
-                    )["audio"])
-                    for (rep, args), e in zip(shards, encs)
-                ]
-                audio = np.concatenate([self._unpack(a) for a in packed])
-                total = total_frames * self.hop
-                with self._stats_lock:
-                    self.stats["vocode_frames_executed"] += int(fb * batch_bucket)
-                    self.stats["vocode_frames_worstcase"] += int(t_full * batch_bucket)
-            else:
-                outs = [tts.synthesize(rep, *args, self.mcfg, dtype) for rep, args in shards]
-                packed = [(self._pack(o["audio"]), o["total_samples"]) for o in outs]
-                audio = np.concatenate([self._unpack(a) for a, _ in packed])
-                total = np.concatenate([t.cpu().numpy() for _, t in packed])
-
-        results = [audio[i, : int(total[i])].astype(np.float32) for i in range(b)]
+        t_full = int(bucket * self.mcfg.max_frames_per_token)
+        span = self.tracer.span
+        # `engine.pass` opens with the device lock held and, with its `engine.unpack`,
+        # closes after the results are sliced, which runs with the lock released: the
+        # lock covers the host copies and their f32 conversion only.
+        with ExitStack() as open_spans:
+            with self._device_section(), torch.inference_mode():
+                pass_span = open_spans.enter_context(span("engine.pass", id=pass_id))
+                host, total, fb = self._pass(tokens, mask, spk, exagg, bucket, batch_bucket, t_full)
+                if pass_span:
+                    pass_span.set(batch=b, batch_bucket=batch_bucket, token_bucket=bucket, frame_bucket=fb,
+                                  real_tokens=int(np.sum(lengths)))
+                open_spans.enter_context(span("engine.unpack"))
+                audio = np.concatenate([self._to_f32(h) for h in host])
+            results = [audio[i, : int(total[i])].astype(np.float32) for i in range(b)]
         dt = time.time() - t0
         with self._stats_lock:
             self.stats["batches"] += 1
@@ -393,6 +388,49 @@ class TTSEngine:
             self.stats["real_tokens"] += int(np.sum(lengths))
             self.stats["padded_tokens"] += int(batch_bucket * bucket)
         return results
+
+    def _pass(self, tokens, mask, spk, exagg, bucket: int, batch_bucket: int, t_full: int):
+        """The device work of one `synthesize_batch` pass, under the device lock:
+        the host copies of the audio (PCM16 or f32), the samples per row and the
+        frame bucket vocoded. Every shard is enqueued before any is read back, so
+        the devices overlap."""
+        dtype = self.compute_dtype
+        span = self.tracer.span
+        shards = self._shards(tokens, mask, spk, exagg)
+        if self.two_stage_enabled:
+            with span("engine.encode"):
+                encs = [tts.encode_acoustic(rep, *args, self.mcfg, dtype) for rep, args in shards]
+            # The one [B] readback; the frame bucket covers the whole batch.
+            with span("engine.readback"):
+                total_frames = np.concatenate([e["total_frames"].cpu().numpy() for e in encs])
+            need = int(total_frames.max()) + self.ecfg.stream_context_frames
+            fb = min((x for x in self.ecfg.vocode_frame_buckets if x >= need), default=t_full)
+            fb = min(fb, t_full)
+            if (batch_bucket, bucket, fb) not in self._vocode_shapes_seen:
+                self._vocode_shapes_seen.add((batch_bucket, bucket, fb))
+                self.stats["compiles"] += 1
+            with span("engine.decode_vocode"):
+                packed = [
+                    self._pack(tts.decode_vocode(
+                        rep, e["enc"], e["spk"], e["durations"], args[1], fb, self.mcfg,
+                        dtype, local_attention_from=t_full,
+                    )["audio"])
+                    for (rep, args), e in zip(shards, encs)
+                ]
+            host = [self._readback(a) for a in packed]
+            total = total_frames * self.hop
+            with self._stats_lock:
+                self.stats["vocode_frames_executed"] += int(fb * batch_bucket)
+                self.stats["vocode_frames_worstcase"] += int(t_full * batch_bucket)
+        else:
+            fb = t_full
+            with span("engine.synthesize"):
+                outs = [tts.synthesize(rep, *args, self.mcfg, dtype) for rep, args in shards]
+                packed = [(self._pack(o["audio"]), o["total_samples"]) for o in outs]
+            host = [self._readback(a) for a, _ in packed]
+            with span("engine.readback"):
+                total = np.concatenate([t.cpu().numpy() for _, t in packed])
+        return host, total, fb
 
     # ------------------------------------------------------------ streaming synthesis
 
@@ -435,7 +473,7 @@ class TTSEngine:
         exagg = np.asarray([exaggeration], np.float32)
         dtype = self.compute_dtype
 
-        with self._device_section(), self.timers.track("acoustic_device"), torch.inference_mode():
+        with self._device_section(), self.tracer.span("engine.stream.acoustic"), torch.inference_mode():
             ac = tts.acoustic_mel(self.params, *self._tensors(tokens, mask, spk, exagg), self.mcfg, dtype)
             mel = ac["mel"]
             total_frames = int(ac["total_frames"][0])
@@ -457,8 +495,8 @@ class TTSEngine:
             start = 0 if k == 0 else k * stride - ctx
             lead = 0 if k == 0 else ctx
             window = mel[:, start : start + w]
-            with self._device_section(), self.timers.track("vocode_window_device"), torch.inference_mode():
-                wav = self._unpack(self._pack(tts.vocode(self.params, window, self.mcfg, dtype)))[0]
+            with self._device_section(), self.tracer.span("engine.stream.window"), torch.inference_mode():
+                wav = self._to_f32(self._readback(self._pack(tts.vocode(self.params, window, self.mcfg, dtype))))[0]
             body = wav[lead * hop : (lead + stride) * hop]
             chunk = body[: max(0, total_samples - emitted)]
             if len(chunk):
@@ -506,7 +544,7 @@ class TTSEngine:
             round(self.stats["real_tokens"] / self.stats["padded_tokens"], 4)
             if self.stats["padded_tokens"] else 1.0
         )
-        stats["timers"] = self.timers.summary()
+        stats["timers"] = self.tracer.summary()
         stats["two_stage_dispatch"] = self.two_stage_enabled
         from ..text import g2p
 

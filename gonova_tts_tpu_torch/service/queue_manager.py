@@ -21,6 +21,7 @@ from dataclasses import dataclass, field
 from typing import Dict, Optional
 
 from ..utils import get_logger
+from ..utils.prof import NOOP
 
 logger = get_logger("gonova.queue")
 
@@ -39,6 +40,7 @@ class SynthesisRequest:
     metadata: bool = False  # opt-in synthesis_started frame (README-promised extension)
     output_format: str = "pcm"  # pcm|wav|mp3|opus (encoding: config, audio/encode.py)
     cancelled: bool = field(default=False, compare=False)
+    trace: object = field(default=NOOP, compare=False, repr=False)  # its service.request span
 
 
 @dataclass
@@ -48,6 +50,7 @@ class AudioChunk:
     chunk_id: int
     is_final: bool
     sample_rate: int = 24000
+    trace: object = field(default=None, compare=False, repr=False)  # the request's span, on its first audio
 
 
 class TTSQueueManager:
@@ -118,6 +121,7 @@ class TTSQueueManager:
         metadata: bool = False,
         seq: int = 0,
         output_format: str = "pcm",
+        trace: object = NOOP,
     ) -> bool:
         request = SynthesisRequest(
             connection_id=connection_id,
@@ -131,6 +135,7 @@ class TTSQueueManager:
             metadata=metadata,
             seq=seq,
             output_format=output_format,
+            trace=trace,
         )
         try:
             await asyncio.wait_for(self.input_queue.put(request), timeout=timeout)
@@ -182,6 +187,7 @@ class TTSQueueManager:
         chunk_id: int,
         is_final: bool = False,
         sample_rate: int = 24000,
+        trace: object = None,
     ) -> bool:
         queue = self.output_queues.get(connection_id)
         if queue is None:
@@ -193,6 +199,7 @@ class TTSQueueManager:
             chunk_id=chunk_id,
             is_final=is_final,
             sample_rate=sample_rate,
+            trace=trace,
         )
         try:
             queue.put_nowait(chunk)

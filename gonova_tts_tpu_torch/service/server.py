@@ -19,6 +19,13 @@ compares message types with this module's `WSMsgType`, whose values are aiohttp'
 send. aiohttp is imported only by the app (`create_app`, the handlers, `main`), so the
 service runs behind any socket that offers those calls.
 
+Spans (the engine's tracer, utils/prof.py), request id `(connection id, seq)`:
+`service.request` from a `synthesize` message's admission to its final marker
+enqueued; under it `service.queue_wait` (admission → a worker takes it up, parking
+included) and `service.first_audio` (admission → its first binary frame handed to
+`send_bytes`), and what the request runs: its sentences' frontend and batcher spans
+and its voice's embedding. `service.register_voice`: the message → its reply.
+
     python -m gonova_tts_tpu_torch.service.server     # port 8002, TTS_PORT overrides
 """
 
@@ -89,6 +96,7 @@ class TTSService:
         configure_logging(self.config.logging.level, logfile=self.config.logging.file)
 
         self.synthesizer = StreamingSynthesizer(self.config)
+        self.tracer = self.synthesizer.engine.tracer
         self.voice_manager = VoiceManager(
             cache_dir=self.config.voice_cloning.cache_dir,
             max_cached=self.config.voice_cloning.max_cached_voices,
@@ -245,10 +253,7 @@ class TTSService:
         if path is None:
             logger.warning("voice_not_found", voice_id=voice_id)
             return self._default_speaker
-        loop = asyncio.get_event_loop()
-        emb = await loop.run_in_executor(
-            None, self.synthesizer.engine.embed_voice_file, path
-        )
+        emb = await asyncio.to_thread(self.synthesizer.engine.embed_voice_file, path)
         if self.voice_manager.generation_of(key) == gen:
             self.voice_embeddings.put(key, emb)
         return emb
@@ -319,7 +324,9 @@ class TTSService:
                 # chain inline — per-connection requests are serial by contract,
                 # so one worker owning the backlog is the optimal schedule.
                 while request is not None:
-                    request = await self._process_request(request)
+                    # The request's span is the parent of what it runs.
+                    with self.tracer.within(request.trace):
+                        request = await self._process_request(request)
             except asyncio.CancelledError:
                 break
             except Exception as e:  # noqa: BLE001
@@ -364,6 +371,8 @@ class TTSService:
                 )
             await asyncio.sleep(0.005)  # throttle the above-cap requeue cycle
             return None
+        if request.trace:
+            self.tracer.record("service.queue_wait", request.trace.start, parent=request.trace)
         chunk_id = 0
         pending: list = []
         try:
@@ -408,13 +417,15 @@ class TTSService:
                         # send yet (never happens for pcm — parity preserved).
                         continue
                     await self.queue_manager.enqueue_audio_chunk(
-                        request.connection_id, payload, chunk_id, is_final=False
+                        request.connection_id, payload, chunk_id, is_final=False,
+                        trace=None if chunk_id else request.trace,
                     )
                     chunk_id += 1
                 tail = encoder.flush()
                 if tail and not self._is_stale(request):
                     await self.queue_manager.enqueue_audio_chunk(
-                        request.connection_id, tail, chunk_id, is_final=False
+                        request.connection_id, tail, chunk_id, is_final=False,
+                        trace=None if chunk_id else request.trace,
                     )
                     chunk_id += 1
                 await self.queue_manager.enqueue_audio_chunk(
@@ -433,6 +444,7 @@ class TTSService:
                 await self._send_error_frame(
                     request.connection_id, f"Synthesis failed: {e}", chunk_id
                 )
+            self.tracer.finish(request.trace)
             logger.info(
                 "synthesis_completed",
                 connection_id=request.connection_id,
@@ -527,6 +539,8 @@ class TTSService:
                                 }
                             )
                         elif not chunk.is_final:
+                            if chunk.trace:
+                                self.tracer.record("service.first_audio", chunk.trace.start, parent=chunk.trace)
                             await ws.send_bytes(chunk.audio_data)
                         else:
                             await ws.send_json(
@@ -608,6 +622,7 @@ class TTSService:
                 return
             seq = self._conn_seq_alloc.get(conn_id, 0)
             self._conn_seq_alloc[conn_id] = seq + 1
+            span = self.tracer.begin("service.request", request=(conn_id, seq))
             accepted = await self.queue_manager.enqueue_request(
                 connection_id=conn_id,
                 text=data.get("text", ""),
@@ -622,8 +637,10 @@ class TTSService:
                 metadata=data.get("metadata", False),
                 seq=seq,
                 output_format=fmt,
+                trace=span,
             )
             if not accepted:
+                self.tracer.finish(span, dropped=1)
                 # The slot was never admitted; don't let its seq hole stall later
                 # requests (contiguous advance — never jumps past in-flight work).
                 self._finish_seq(conn_id, seq)
@@ -641,6 +658,7 @@ class TTSService:
             voice_id = data.get("voice_id")
             reference_audio = data.get("reference_audio")
             if voice_id and reference_audio:
+                span = self.tracer.begin("service.register_voice", request=(conn_id, None))
                 try:
                     await self.voice_manager.register_voice(
                         voice_id=voice_id,
@@ -653,6 +671,7 @@ class TTSService:
                     await ws.send_json(
                         {"type": "error", "message": f"Voice registration failed: {e}"}
                     )
+                self.tracer.finish(span)
             else:
                 # Never leave the client awaiting voice_registered: missing or
                 # empty fields must answer like every other invalid input here.
@@ -715,7 +734,8 @@ class TTSService:
 
     def metrics_prometheus(self) -> str:
         """Body of `GET /metrics?format=prometheus`: Prometheus text exposition of the
-        queue metrics and the batcher's counters."""
+        queue metrics, the batcher's and the engine's counters, and one histogram of
+        seconds per span name (`gonova_tts_span_seconds{span=...}`)."""
         lines = []
         for key, value in self.metrics().items():
             name = f"gonova_tts_{key}"
@@ -726,6 +746,11 @@ class TTSService:
             for key, value in self.batcher.metrics.items():
                 lines.append(f"# TYPE gonova_tts_batcher_{key} counter")
                 lines.append(f"gonova_tts_batcher_{key} {value}")
+        stats = self.synthesizer.engine.stats
+        for key in ("padded_tokens", "real_tokens", "vocode_frames_executed", "truncated_sentences"):
+            lines.append(f"# TYPE gonova_tts_engine_{key} counter")
+            lines.append(f"gonova_tts_engine_{key} {stats[key]}")
+        lines += self.tracer.prometheus()
         return "\n".join(lines) + "\n"
 
 

@@ -178,7 +178,7 @@ def test_load_warmup_stats_health(pair):
     assert len(outs) == 9 and all(np.isfinite(w).all() and len(w) % eng.hop == 0 for w in outs)
     stats = eng.get_stats()
     assert 0.0 < stats["padding_efficiency"] <= 1.0 and stats["two_stage_dispatch"] is True
-    assert stats["timers"]["synth_batch_device"]["count"] == 1
+    assert stats["timers"]["engine.pass"]["count"] == 1
     assert eng.health_check()["status"] == "ok"
     eng.synthesize_batch(["x"], id_lists=[[5] * 250])
     assert eng.stats["truncated_sentences"] == 1

@@ -1,5 +1,5 @@
-"""The port's C audio runtime (`csrc/audio_runtime.cpp` through `utils/native.py`)
-and `utils/prof.device_trace`, on the CPU.
+"""The port's C audio runtime (`csrc/audio_runtime.cpp` through `utils/native.py`),
+on the CPU.
 
 The library is built with the host compiler into a temporary build directory
 (skipped only where there is no C++ compiler) and each entry point is held against
@@ -12,7 +12,6 @@ first load compiles the CUDA sources only; a failed build falls back to numpy an
 reports the compiler's message once.
 """
 
-import json
 import logging
 import os
 import shutil
@@ -21,11 +20,10 @@ import sys
 
 import numpy as np
 import pytest
-import torch
 
 from gonova_tts_tpu.utils import native as jnative
 from gonova_tts_tpu_torch.ops import _build
-from gonova_tts_tpu_torch.utils import native, prof
+from gonova_tts_tpu_torch.utils import native
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -184,18 +182,3 @@ def test_first_use_builds_and_a_failed_build_reports(tmp_path, monkeypatch, capl
     assert "no/such/header.h" in native.native_error()
     assert len([r for r in caplog.records if "C audio runtime unavailable" in r.getMessage()]) == 1
 
-
-def test_device_trace_writes_a_trace(tmp_path):
-    log_dir = str(tmp_path / "trace")
-    with prof.device_trace(log_dir):
-        torch.ones(64).cumsum(0)
-    files = os.listdir(log_dir)
-    assert len(files) == 1 and files[0].endswith(".json")
-    with open(os.path.join(log_dir, files[0])) as f:
-        events = json.load(f)["traceEvents"]
-    assert any("cumsum" in e.get("name", "") for e in events)
-    with prof.device_trace(None):  # no-op
-        torch.ones(4).sum()
-    with prof.device_trace(""):
-        pass
-    assert os.listdir(log_dir) == files

@@ -33,7 +33,7 @@ from gonova_tts_tpu_torch.service import (
     validate_reference_audio,
 )
 from gonova_tts_tpu_torch.text import text_to_ids
-from gonova_tts_tpu_torch.utils import get_logger, native, wavio, write_wav
+from gonova_tts_tpu_torch.utils import Tracer, get_logger, native, wavio, write_wav
 
 DEFAULT_VOICE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "assets", "default_voice.wav")
 
@@ -632,11 +632,12 @@ class StubEngine:
 
     def __init__(self, fail_on=None):
         self.ecfg = EngineConfig(token_buckets=[32, 64, 128], max_batch=8, batch_window_ms=5.0)
+        self.tracer = Tracer()
         self.passes = []
         self.fail_on = fail_on
 
-    def synthesize_batch(self, texts, speakers=None, exaggerations=None, id_lists=None):
-        self.passes.append({"texts": list(texts), "speakers": speakers, "ids": id_lists})
+    def synthesize_batch(self, texts, speakers=None, exaggerations=None, id_lists=None, pass_id=0):
+        self.passes.append({"texts": list(texts), "speakers": speakers, "ids": id_lists, "pass_id": pass_id})
         if self.fail_on is not None and any(self.fail_on in t for t in texts):
             raise ValueError("device pass failed")
         return [np.full((len(ids),), i, np.float32) for i, ids in enumerate(id_lists)]
