@@ -21,8 +21,14 @@ surface (`load`, `warmup`, `embed_voice`, `embed_voice_file`, `synthesize_batch`
     buffer → log-mel (the fused kernel on CUDA under `engine.mel_pallas`) →
     speaker encoder.
 
-PyTorch runs eagerly, so there is no compile cache; `warmup` runs the warmup
-shapes once. `engine.data_parallel` resolves as in the JAX engine (0 = every
+PyTorch runs eagerly, so there is no compile cache. On a card with one replica,
+`warmup` captures every warmed shape as CUDA graphs (`models/graphs.py`) and a
+pass replays them: the token-domain half per (batch, token bucket), the acoustic
+decode per (batch, token bucket, frame bucket), the vocoder per (batch, frame
+bucket), the request's inputs copied into the graphs' static inputs through pinned
+host buffers. Other passes run eagerly, as do streaming and voice embedding;
+without graphs (the CPU, data parallelism) `warmup` runs the warmup shapes once.
+`engine.data_parallel` resolves as in the JAX engine (0 = every
 device of `multi.local_devices`; more than exist raises). With two or more, each
 device holds a replica (`engine/multi.py`) and a batch, rounded up to a multiple of
 the device count, is split into contiguous row blocks, one per replica: every
@@ -47,6 +53,7 @@ from ..audio.mel import mel_spectrogram
 from ..audio.resample import resample
 from ..config import Config
 from ..device import resolve_device
+from ..models import graphs
 from ..models import params as params_mod
 from ..models import tts
 from ..text import batch_to_bucket, pick_bucket, segment_text, text_to_ids
@@ -95,9 +102,15 @@ class TTSEngine:
             "vocode_frames_executed": 0,
             "vocode_frames_worstcase": 0,
             "truncated_sentences": 0,
+            "graph_passes": 0,  # passes whose graphed parts all replayed
+            "eager_passes": 0,
+            "graphs_captured": 0,
         }
         self._vocode_shapes_seen: set = set()
         self._auto_two_stage = False
+        self._graphs: Optional[graphs.GraphSet] = None
+        # (batch, token bucket) → (pinned host buffers, the graphs' static inputs)
+        self._staged: dict = {}
 
     @contextmanager
     def _device_section(self):
@@ -136,6 +149,10 @@ class TTSEngine:
             logger.info("data parallel over %s", [str(d) for d in self._dp.devices])
         else:
             self.replicas = [self.params]
+        on_card = self.device.type == "cuda" and self._dp is None
+        self._graphs = graphs.GraphSet(self.device) if on_card else None
+        self._staged = {}
+        self.stats["graphs_captured"] = 0
 
         self._auto_two_stage = False
         if self.ecfg.two_stage_batch == "auto":
@@ -201,10 +218,29 @@ class TTSEngine:
             torch.as_tensor(spk, device=dev), torch.as_tensor(exagg, device=dev),
         )
 
+    def _stage(self, arrays):
+        """A warmed shape's static inputs (made at warm-up) holding `arrays`: each is
+        copied into its pinned host buffer, then to the device without blocking. A
+        pass reads its audio back before the next one writes the buffers."""
+        host, dev = self._staged[arrays[0].shape]
+        for h, d, a in zip(host, dev, arrays):
+            h.numpy()[...] = a
+            d.copy_(h, non_blocking=True)
+        return dev
+
+    def _make_staged(self, arrays) -> None:
+        pin = self.device.type == "cuda"
+        host = tuple(torch.empty(a.shape, dtype=torch.from_numpy(a).dtype, pin_memory=pin) for a in arrays)
+        dev = tuple(torch.empty(a.shape, dtype=h.dtype, device=self.device) for a, h in zip(arrays, host))
+        self._staged[arrays[0].shape] = (host, dev)
+
     def _shards(self, tokens, mask, spk, exagg):
-        """[(replica, its device tensors)]: the whole batch on the one replica, or
-        each data-parallel replica's contiguous block of rows."""
+        """[(replica, its device tensors)]: the whole batch on the one replica (in
+        the static inputs of its shape's graphs, where it has them), or each
+        data-parallel replica's contiguous block of rows."""
         if self._dp is None:
+            if tokens.shape in self._staged:
+                return [(self.params, self._stage((tokens, mask, spk, exagg)))]
             return [(self.params, self._tensors(tokens, mask, spk, exagg))]
         parts = [self._dp.shard_rows(a) for a in (tokens, mask, spk, exagg)]
         return [
@@ -212,46 +248,63 @@ class TTSEngine:
             for i, (rep, dev) in enumerate(zip(self.replicas, self._dp.devices))
         ]
 
+    def _frame_buckets(self, bucket: int) -> List[int]:
+        """The frame buckets a two-stage pass at this token bucket can dispatch."""
+        t_full = bucket * self.mcfg.max_frames_per_token
+        return [x for x in self.ecfg.vocode_frame_buckets if x < t_full] + [t_full]
+
+    def _zeros(self, batch: int, bucket: int):
+        return (
+            np.zeros((batch, bucket), np.int32), np.ones((batch, bucket), np.float32),
+            np.zeros((batch, self.mcfg.speaker_dim), np.float32), np.zeros((batch,), np.float32),
+        )
+
     def warmup(self) -> None:
         """Run each configured (batch, token-bucket) shape once — in two-stage mode
         encode plus decode_vocode at every frame bucket the shape can dispatch — and
         the streaming window shape. Under data parallelism the batch is rounded as
-        serving rounds it and every replica runs its shard's shape."""
+        serving rounds it and every replica runs its shard's shape. With graphs (a
+        card, one replica) each shape is captured instead, after `_prime`, and its
+        readbacks read nothing yet; the engine captures nothing after warm-up."""
         dtype = self.compute_dtype
-        with torch.inference_mode():
-            for batch, bucket in self.ecfg.warmup_shapes:
-                t0 = time.time()
-                if self._dp is not None:
-                    batch = self._dp.round_batch(batch)
-                shards = self._shards(
-                    np.zeros((batch, bucket), np.int32), np.ones((batch, bucket), np.float32),
-                    np.zeros((batch, self.mcfg.speaker_dim), np.float32), np.zeros((batch,), np.float32),
-                )
-                if self.two_stage_enabled:
-                    encs = [tts.encode_acoustic(rep, *args, self.mcfg, dtype) for rep, args in shards]
-                    for e in encs:
-                        e["total_frames"].cpu()
-                    self.stats["compiles"] += 1
-                    t_full = bucket * self.mcfg.max_frames_per_token
-                    fbs = [x for x in self.ecfg.vocode_frame_buckets if x < t_full]
-                    for fb in fbs + [t_full]:
-                        outs = [
-                            tts.decode_vocode(
-                                rep, e["enc"], e["spk"], e["durations"], args[1], fb,
-                                self.mcfg, dtype, local_attention_from=t_full,
-                            )
-                            for (rep, args), e in zip(shards, encs)
-                        ]
+        # The device lock (without its span) keeps a health probe's launch out of a capture.
+        with self._lock, torch.inference_mode():
+            if self._graphs is not None:
+                self._prime(dtype)
+            with graphs.active(self._graphs, capture=True):
+                for batch, bucket in self.ecfg.warmup_shapes:
+                    t0 = time.time()
+                    if self._dp is not None:
+                        batch = self._dp.round_batch(batch)
+                    arrays = self._zeros(batch, bucket)
+                    if self._graphs is not None and (batch, bucket) not in self._staged:
+                        self._make_staged(arrays)
+                    shards = self._shards(*arrays)
+                    if self.two_stage_enabled:
+                        encs = [tts.encode_acoustic(rep, *args, self.mcfg, dtype) for rep, args in shards]
+                        for e in encs:
+                            e["total_frames"].cpu()
+                        self.stats["compiles"] += 1
+                        t_full = bucket * self.mcfg.max_frames_per_token
+                        for fb in self._frame_buckets(bucket):
+                            outs = [
+                                tts.decode_vocode(
+                                    rep, e["enc"], e["spk"], e["durations"], args[1], fb,
+                                    self.mcfg, dtype, local_attention_from=t_full,
+                                )
+                                for (rep, args), e in zip(shards, encs)
+                            ]
+                            for out in outs:
+                                out["total_samples"].cpu()
+                            self._vocode_shapes_seen.add((batch, bucket, fb))
+                            self.stats["compiles"] += 1
+                    else:
+                        outs = [tts.synthesize(rep, *args, self.mcfg, dtype) for rep, args in shards]
                         for out in outs:
                             out["total_samples"].cpu()
-                        self._vocode_shapes_seen.add((batch, bucket, fb))
                         self.stats["compiles"] += 1
-                else:
-                    outs = [tts.synthesize(rep, *args, self.mcfg, dtype) for rep, args in shards]
-                    for out in outs:
-                        out["total_samples"].cpu()
-                    self.stats["compiles"] += 1
-                logger.info("warmup batch %d bucket %d: %.2f s", batch, bucket, time.time() - t0)
+                    logger.info("warmup batch %d bucket %d: %.2f s", batch, bucket, time.time() - t0)
+            self.stats["graphs_captured"] = len(self._graphs or ())
             stride = self.ecfg.stream_chunk_frames
             ctx = min(self.ecfg.stream_context_frames, stride)
             # The JAX engine's rule, kept as it is: it reads vocos_layers whatever
@@ -265,6 +318,30 @@ class TTSEngine:
             mel = torch.zeros((1, stride + 2 * ctx, self.mcfg.n_mels), dtype=dtype, device=self.device)
             self._pack(tts.vocode(self.params, mel, self.mcfg, dtype)).cpu()
             self.stats["compiles"] += 1
+
+    def _prime(self, dtype) -> None:
+        """Before the captures, on the capture stream: at batch 1, an eager encode
+        per warmed token bucket and a decode_vocode at the fewest and the most frames
+        warmed (the two sides of the kernels' length limits). It builds what a first
+        call builds on the host (position tables, packed weights, fold selectors, the
+        libraries' per-stream state), which a capture may not copy to the device.
+        One-graph: a whole pass per token bucket."""
+        buckets = sorted({bucket for _, bucket in self.ecfg.warmup_shapes})
+        ends = {(buckets[0], self._frame_buckets(buckets[0])[0]),
+                (buckets[-1], self._frame_buckets(buckets[-1])[-1])}
+        with self._graphs.side_stream():
+            for bucket in buckets:
+                args = self._tensors(*self._zeros(1, bucket))
+                if not self.two_stage_enabled:
+                    tts.synthesize(self.params, *args, self.mcfg, dtype)["total_samples"].cpu()
+                    continue
+                e = tts.encode_acoustic(self.params, *args, self.mcfg, dtype)
+                for fb in sorted(fb for b, fb in ends if b == bucket):
+                    tts.decode_vocode(
+                        self.params, e["enc"], e["spk"], e["durations"], args[1], fb, self.mcfg, dtype,
+                        local_attention_from=bucket * self.mcfg.max_frames_per_token,
+                    )["total_samples"].cpu()
+                e["total_frames"].cpu()
 
     # ------------------------------------------------------------ voice embedding
 
@@ -372,10 +449,12 @@ class TTSEngine:
         with ExitStack() as open_spans:
             with self._device_section(), torch.inference_mode():
                 pass_span = open_spans.enter_context(span("engine.pass", id=pass_id))
-                host, total, fb = self._pass(tokens, mask, spk, exagg, bucket, batch_bucket, t_full)
+                with graphs.active(self._graphs) as graph_set:
+                    host, total, fb = self._pass(tokens, mask, spk, exagg, bucket, batch_bucket, t_full)
+                graphed = graph_set is not None and graph_set.eager == 0 and graph_set.replayed > 0
                 if pass_span:
                     pass_span.set(batch=b, batch_bucket=batch_bucket, token_bucket=bucket, frame_bucket=fb,
-                                  real_tokens=int(np.sum(lengths)))
+                                  real_tokens=int(np.sum(lengths)), graphed=graphed)
                 open_spans.enter_context(span("engine.unpack"))
                 audio = np.concatenate([self._to_f32(h) for h in host])
             results = [audio[i, : int(total[i])].astype(np.float32) for i in range(b)]
@@ -387,6 +466,7 @@ class TTSEngine:
             self.stats["total_latency"] += dt
             self.stats["real_tokens"] += int(np.sum(lengths))
             self.stats["padded_tokens"] += int(batch_bucket * bucket)
+            self.stats["graph_passes" if graphed else "eager_passes"] += 1
         return results
 
     def _pass(self, tokens, mask, spk, exagg, bucket: int, batch_bucket: int, t_full: int):

@@ -16,7 +16,7 @@ import torch.nn.functional as F
 
 from ..config import ModelConfig
 from ..ops import transformer_stack as ts_op
-from . import layers
+from . import graphs, layers
 from .layers import Tree
 
 
@@ -141,12 +141,21 @@ def encode(
     durations: Optional[torch.Tensor] = None,
     dtype=torch.float32,
 ) -> Dict[str, torch.Tensor]:
-    """Token-domain half: embedding → encoder → predictors → pitch conditioning."""
+    """Token-domain half: embedding → encoder → predictors → pitch conditioning.
+    Replayed from a CUDA graph where the serving pass has one (`graphs.run`)."""
+    inputs = (tokens, token_mask, speaker, exaggeration) + (() if durations is None else (durations,))
+    return graphs.run(
+        "acoustic.encode",
+        lambda: _encode(params, tokens, token_mask, speaker, exaggeration, cfg, durations, dtype),
+        params, inputs, id(cfg), dtype,
+    )
+
+
+def _encode(params, tokens, token_mask, speaker, exaggeration, cfg, durations, dtype):
     b, l = tokens.shape
     mask_f = token_mask.to(dtype)
     x = layers.embedding(params["embed"], tokens.long(), dtype)
-    pos = torch.as_tensor(layers.sinusoidal_positions(l, cfg.d_model), device=x.device)
-    x = x + pos.to(dtype)[None]
+    x = x + layers.positions_on(l, cfg.d_model, x.device).to(dtype)[None]
     spk = layers.dense(params["spk_proj"], speaker.to(dtype), dtype)  # [B, D]
     x = (x + spk[:, None, :]) * mask_f[..., None]
 
@@ -192,7 +201,16 @@ def decode(
 ) -> Dict[str, torch.Tensor]:
     """Frame-domain half: length regulate → decoder → mel. `local_attention_from`
     makes the local-vs-full attention (and kernel-vs-plain) choice as if the frame
-    axis were that long, so a frame-bucketed dispatch matches the one-graph shape."""
+    axis were that long, so a frame-bucketed dispatch matches the one-graph shape.
+    Replayed from a CUDA graph where the serving pass has one (`graphs.run`)."""
+    return graphs.run(
+        "acoustic.decode",
+        lambda: _decode(params, enc, spk, durations, token_mask, max_frames, cfg, dtype, local_attention_from),
+        params, (enc, spk, durations, token_mask), max_frames, id(cfg), dtype, local_attention_from,
+    )
+
+
+def _decode(params, enc, spk, durations, token_mask, max_frames, cfg, dtype, local_attention_from):
     reg = length_regulate(enc, durations, token_mask, max_frames)
     dec_in = reg["frames"] + spk[:, None, :] * reg["frame_mask"][..., None]
     use_local = (

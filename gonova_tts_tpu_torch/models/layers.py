@@ -233,6 +233,27 @@ def sinusoidal_positions(length: int, dim: int, dtype=np.float32) -> np.ndarray:
     return table.astype(dtype)
 
 
+_CONSTANTS: dict = {}
+
+
+def device_constant(key, build, device) -> torch.Tensor:
+    """`build()`, a numpy array, copied to `device` once per (key, device) and kept.
+
+    A pass then copies nothing from the host, which a CUDA graph's capture forbids.
+    Made outside inference mode whatever the caller's mode: serving may build it
+    first, and an inference tensor cannot enter a later training step's graph."""
+    full = (key, torch.device(device))
+    if full not in _CONSTANTS:
+        with torch.inference_mode(False):
+            _CONSTANTS[full] = torch.as_tensor(build(), device=device)
+    return _CONSTANTS[full]
+
+
+def positions_on(length: int, dim: int, device) -> torch.Tensor:
+    """`sinusoidal_positions(length, dim)` (f32) on `device`, built once."""
+    return device_constant(("sinusoidal_positions", length, dim), lambda: sinusoidal_positions(length, dim), device)
+
+
 # ---------------------------------------------------------------- attention
 
 

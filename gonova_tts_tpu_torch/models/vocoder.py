@@ -23,7 +23,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..config import ModelConfig
-from . import layers
+from . import graphs, layers
 from .layers import Tree
 
 LRELU_SLOPE = 0.1
@@ -77,7 +77,12 @@ def init(g: torch.Generator, cfg: ModelConfig) -> Generator:
 
 
 def forward(params: Mapping, mel: torch.Tensor, cfg: ModelConfig, dtype=torch.float32) -> torch.Tensor:
-    """mel [B, T, n_mels] → waveform [B, T * prod(upsample_rates)], tanh, f32."""
+    """mel [B, T, n_mels] → waveform [B, T * prod(upsample_rates)], tanh, f32.
+    Replayed from a CUDA graph where the serving pass has one (`graphs.run`)."""
+    return graphs.run("vocoder.forward", lambda: _forward(params, mel, cfg, dtype), params, (mel,), id(cfg), dtype)
+
+
+def _forward(params: Mapping, mel: torch.Tensor, cfg: ModelConfig, dtype) -> torch.Tensor:
     x = layers.conv1d(params["conv_pre"], mel.to(dtype), dtype=dtype)
     for up, mrf, rate in zip(params["ups"], params["mrfs"], cfg.upsample_rates):
         x = layers.leaky_relu(x, LRELU_SLOPE)

@@ -32,7 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from ..config import ModelConfig
-from . import layers, vocoder
+from . import graphs, layers, vocoder
 
 LRELU_SLOPE = vocoder.LRELU_SLOPE
 
@@ -133,7 +133,14 @@ def forward(params: Mapping, mel: torch.Tensor, cfg: ModelConfig, dtype=torch.fl
     """mel [B, T, n_mels] → waveform [B, T · prod(upsample_rates)], f32.
 
     The parameters and the result of `vocoder.forward`; only the layout differs.
-    A stage whose length does not divide by its fold stays at the fold it has."""
+    A stage whose length does not divide by its fold stays at the fold it has.
+    Replayed from a CUDA graph where the serving pass has one (`graphs.run`)."""
+    return graphs.run(
+        "vocoder_folded.forward", lambda: _forward(params, mel, cfg, dtype), params, (mel,), id(cfg), dtype
+    )
+
+
+def _forward(params: Mapping, mel: torch.Tensor, cfg: ModelConfig, dtype) -> torch.Tensor:
     b = mel.shape[0]
     x = layers.conv1d(params["conv_pre"], mel.to(dtype), dtype=dtype)
     ch = cfg.upsample_initial_channel

@@ -19,7 +19,7 @@ from ..audio.stft import hann_window, idft_bases
 from ..config import ModelConfig
 from ..ops import vocos_stack as vs_op
 from ..parallel import tp
-from . import layers
+from . import graphs, layers
 from .layers import Tree
 
 
@@ -90,7 +90,12 @@ def init(g: torch.Generator, cfg: ModelConfig) -> Vocos:
 
 
 def forward(params: Mapping, mel: torch.Tensor, cfg: ModelConfig, dtype=torch.float32) -> torch.Tensor:
-    """mel [B, T, n_mels] → waveform [B, T * hop] (f32)."""
+    """mel [B, T, n_mels] → waveform [B, T * hop] (f32). Replayed from a CUDA graph
+    where the serving pass has one (`graphs.run`)."""
+    return graphs.run("vocos.forward", lambda: _forward(params, mel, cfg, dtype), params, (mel,), id(cfg), dtype)
+
+
+def _forward(params: Mapping, mel: torch.Tensor, cfg: ModelConfig, dtype) -> torch.Tensor:
     n_fft, hop = cfg.n_fft, cfg.hop_length
     if n_fft != 4 * hop or cfg.win_length != n_fft:
         raise ValueError("NovaVocos assumes 4x-overlap framing with the full n_fft Hann "
@@ -129,6 +134,17 @@ def forward(params: Mapping, mel: torch.Tensor, cfg: ModelConfig, dtype=torch.fl
     return istft_synthesis(real, imag, n_fft, hop, tiled)
 
 
+def _synthesis_bases(n_fft: int) -> np.ndarray:
+    icos, isin = idft_bases(n_fft)
+    return np.concatenate([icos, -isin], axis=0) * hann_window(n_fft)[None, :]
+
+
+def synthesis_bases(n_fft: int, device) -> torch.Tensor:
+    """The inverse-DFT bases with the synthesis window folded in, [n_fft + 2, n_fft]
+    f32 on `device`, built once."""
+    return layers.device_constant(("vocos.synthesis_bases", n_fft), lambda: _synthesis_bases(n_fft), device)
+
+
 def istft_synthesis(
     real: torch.Tensor, imag: torch.Tensor, n_fft: int, hop: int, tiled: bool = False
 ) -> torch.Tensor:
@@ -138,9 +154,7 @@ def istft_synthesis(
     bases, four shifted adds, the constant NOLA normalization 1.5 (periodic Hann
     at 4x overlap), and a 1.5*hop lead trim aligning sample 0 with frame 0."""
     b, t, _ = real.shape
-    icos, isin = idft_bases(n_fft)
-    bases = np.concatenate([icos, -isin], axis=0) * hann_window(n_fft)[None, :]
-    bases = torch.as_tensor(bases, device=real.device)
+    bases = synthesis_bases(n_fft, real.device)
     spec = torch.cat([real, imag], dim=-1)
     frames = layers.tiled_matmul(spec, bases) if tiled else spec @ bases  # [B, T, n_fft]
     segs = frames.reshape(b, t, 4, hop)

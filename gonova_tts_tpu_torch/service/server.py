@@ -747,8 +747,9 @@ class TTSService:
                 lines.append(f"# TYPE gonova_tts_batcher_{key} counter")
                 lines.append(f"gonova_tts_batcher_{key} {value}")
         stats = self.synthesizer.engine.stats
-        for key in ("padded_tokens", "real_tokens", "vocode_frames_executed", "truncated_sentences"):
-            lines.append(f"# TYPE gonova_tts_engine_{key} counter")
+        for key in ("padded_tokens", "real_tokens", "vocode_frames_executed", "truncated_sentences",
+                    "graph_passes", "eager_passes", "graphs_captured"):
+            lines.append(f"# TYPE gonova_tts_engine_{key} {'gauge' if key == 'graphs_captured' else 'counter'}")
             lines.append(f"gonova_tts_engine_{key} {stats[key]}")
         lines += self.tracer.prometheus()
         return "\n".join(lines) + "\n"

@@ -602,3 +602,157 @@ def test_bench_tstack_kernel_is_within_its_bound(setup):
     for case in res.values():
         assert case["plain_ms"] > 0 and case["fused_ms"] > 0
         assert case["max_abs_err"] < 0.1
+
+
+# ---------------------------------------------------------------- CUDA graphs of the engine's pass
+
+GRAPH_MODEL = dict(d_model=64, n_heads=4, d_ff=128, encoder_layers=2, decoder_layers=2, speaker_dim=32,
+                   vocos_dim=128, vocos_ff=256, vocos_layers=2, upsample_initial_channel=64)
+GRAPH_ENGINE = dict(token_buckets=[32, 64, 128], batch_buckets=[1, 4], max_batch=4,
+                    warmup_shapes=[[1, 32], [4, 32], [4, 64]], vocode_frame_buckets=[128, 192, 256, 320],
+                    stream_chunk_frames=24, stream_context_frames=12)
+GRAPH_TEXTS = ["Hello there world.", "A second one here.", "Third one.", "Four words are here."]
+
+
+def _graph_engines(model: dict, engine: dict):
+    """(an engine whose warm-up captured its shapes, an eager engine on the same
+    weights: its graph set taken away)."""
+    from gonova_tts_tpu_torch.config import Config, EngineConfig
+    from gonova_tts_tpu_torch.engine import TTSEngine
+
+    def config():
+        cfg = Config()
+        cfg.model = ModelConfig(**{**GRAPH_MODEL, **model})
+        cfg.engine = EngineConfig(**{**GRAPH_ENGINE, **engine})
+        return cfg
+
+    graphed = TTSEngine(config(), device="cuda")
+    graphed.load()
+    eager = TTSEngine(config(), device="cuda")
+    eager.load(warmup=False)
+    eager.params, eager.mcfg, eager._graphs = graphed.params, graphed.mcfg, None
+    return graphed, eager
+
+
+GRAPH_CASES = {
+    "vocos": ({}, {}),
+    "vocos-kernels": ({"vocos_pallas": True}, {"acoustic_pallas": True}),
+    "hifigan": ({"vocoder_family": "hifigan"}, {}),
+    "hifigan-kernels": ({"vocoder_family": "hifigan"}, {"acoustic_pallas": True}),
+    "vocos-one-graph": ({}, {"two_stage_batch": False}),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", sorted(GRAPH_CASES))
+def test_graphed_passes_equal_the_eager_pass_at_every_warmed_shape(setup, case):
+    """bf16, small widths. At every warmed (batch, token bucket) and each of its frame
+    buckets the replayed encode, decode and vocoder give the eager pass's PCM16,
+    sample for sample, and no part runs eagerly; served batches through
+    `synthesize_batch` equal the eager engine's; `graphs_captured` is what `load()`
+    left."""
+    from gonova_tts_tpu_torch.models import graphs
+
+    model, engine = GRAPH_CASES[case]
+    graphed, eager = _graph_engines(model, engine)
+    captured = graphed.get_stats()["graphs_captured"]
+    assert captured == len(graphed._graphs) > 0
+    rng = setup[2]
+    two_stage = graphed.two_stage_enabled
+    with torch.inference_mode():
+        for batch, bucket in graphed.ecfg.warmup_shapes:
+            lengths = rng.integers(bucket // 2, bucket + 1, size=batch)
+            tokens = np.where(np.arange(bucket)[None] < lengths[:, None],
+                              rng.integers(1, 200, size=(batch, bucket)), 0).astype(np.int32)
+            arrays = (tokens, (tokens > 0).astype(np.float32),
+                      rng.standard_normal((batch, 32)).astype(np.float32), np.full((batch,), 0.4, np.float32))
+            t_full = bucket * graphed.mcfg.max_frames_per_token
+            for fb in graphed._frame_buckets(bucket) if two_stage else [t_full]:
+                audio = []
+                for eng in (graphed, eager):
+                    args = eng._shards(*arrays)[0][1]
+                    with graphs.active(eng._graphs) as gs:
+                        if two_stage:
+                            e = tts.encode_acoustic(eng.params, *args, eng.mcfg, eng.compute_dtype)
+                            out = tts.decode_vocode(eng.params, e["enc"], e["spk"], e["durations"], args[1], fb,
+                                                    eng.mcfg, eng.compute_dtype, local_attention_from=t_full)
+                        else:
+                            out = tts.synthesize(eng.params, *args, eng.mcfg, eng.compute_dtype)
+                        audio.append(eng._pack(out["audio"]).cpu())
+                    if gs is not None:
+                        assert gs.eager == 0 and gs.replayed == 3, (batch, bucket, fb)
+                assert torch.equal(audio[0], audio[1]), (case, batch, bucket, fb)
+    for texts in (GRAPH_TEXTS, GRAPH_TEXTS[:1], GRAPH_TEXTS[1:3]):
+        for g, w in zip(graphed.synthesize_batch(texts), eager.synthesize_batch(texts)):
+            assert np.array_equal(g, w), case
+    stats = graphed.get_stats()
+    assert stats["graph_passes"] == 3 and stats["eager_passes"] == 0
+    assert stats["graphs_captured"] == captured == len(graphed._graphs)
+
+
+@pytest.mark.gpu
+def test_an_unwarmed_shape_on_the_card_runs_eagerly(setup):
+    graphed, eager = _graph_engines({}, {})
+    captured = graphed.get_stats()["graphs_captured"]
+    text = " ".join(["word"] * 30)  # past 64 tokens: bucket 128, not warmed
+    got = graphed.synthesize_batch([text])[0]
+    assert np.array_equal(got, eager.synthesize_batch([text])[0])
+    stats = graphed.get_stats()
+    assert stats["eager_passes"] == 1 and stats["graph_passes"] == 0
+    assert stats["graphs_captured"] == captured == len(graphed._graphs)
+
+
+@pytest.mark.gpu
+def test_streaming_beside_graphs_matches_the_one_shot_pass(setup):
+    """f32: streamed windows run eagerly and equal the replayed one-shot pass within
+    the engine's streaming bound (2.5 / 32768)."""
+    graphed, _ = _graph_engines({"compute_dtype": "float32"}, {})
+    for text in GRAPH_TEXTS[:2]:
+        streamed = np.concatenate(list(graphed.synthesize_stream(text)))
+        one_shot = graphed.synthesize_batch([text])[0]
+        assert streamed.shape == one_shot.shape
+        assert float(np.abs(streamed - one_shot).max()) <= 2.5 / 32768
+    assert graphed.get_stats()["graph_passes"] == 2
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("family", ["vocos", "hifigan"])
+def test_the_profiler_sees_replayed_kernels_inside_the_vocoders_range(setup, monkeypatch, family):
+    """A `record_function` range around the vocoder's `forward`, as the benchmark's
+    probe opens one, holds the replayed graph's device time: within a factor of two
+    of the eager pass's, with the pass on a worker thread and every thread profiled
+    (as the benchmark's trace does)."""
+    import threading
+
+    from torch.profiler import record_function
+
+    from gonova_tts_tpu_torch.models import tts as tts_mod
+
+    graphed, eager = _graph_engines({"vocoder_family": family}, {})
+    real = tts_mod._vocoder_forward(graphed.mcfg)
+    mod = __import__(real.__module__, fromlist=["forward"])
+
+    def ranged(params, mel, *args, **kw):
+        with record_function(f"probe.vocoder:{mel.shape[0]}x{mel.shape[1]}"):
+            return real(params, mel, *args, **kw)
+
+    monkeypatch.setattr(mod, "forward", ranged)
+    try:
+        from torch._C._profiler import _ExperimentalConfig
+
+        config = _ExperimentalConfig(profile_all_threads=True)
+    except (ImportError, TypeError):
+        config = None
+    device_us = {}
+    for name, eng in (("graphed", graphed), ("eager", eager)):
+        eng.synthesize_batch(GRAPH_TEXTS)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], experimental_config=config) as prof:
+            worker = threading.Thread(target=eng.synthesize_batch, args=(GRAPH_TEXTS,))
+            worker.start()
+            worker.join()
+            torch.cuda.synchronize()
+        ranges = [e for e in prof.events() if e.name.startswith("probe.vocoder:") and e.device_type == DeviceType.CPU]
+        assert len(ranges) == 1, name
+        device_us[name] = ranges[0].device_time_total
+    assert graphed.get_stats()["graph_passes"] == 2
+    assert 0.5 * device_us["eager"] < device_us["graphed"] < 2.0 * device_us["eager"], device_us
