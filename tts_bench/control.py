@@ -1,5 +1,6 @@
-"""The control of the comparison that decides `correct`: the reference itself, put
-in the served program's place and computed in float8 (e4m3, a scale per tensor)
+"""The control of the comparison that decides `correct`: the reference itself (of
+the configuration's model family, `families/<family>.py`), put in the served
+program's place and computed in float8 (e4m3, a scale per tensor)
 where the configuration serves bfloat16, judged by check.py against the float32
 reference exactly as a run judges the served audio. It has to come out not correct.
 
@@ -33,8 +34,9 @@ def read_seed(cell, seed: int, numerics: str, device: str, pool: int = 60) -> di
         cfg = serve.port_config(cell, seed, device, tmp)
         gen = loadgen.Generator(cell.mix, seed)
         voices = serve.make_voices(cell, seed)
-        ref = check.Judge(cfg.model.model_dump(), cfg.engine.model_dump(), cfg.model.model_path, device)
-        ctl = check.Judge(cfg.model.model_dump(), cfg.engine.model_dump(), cfg.model.model_path, device, numerics)
+        family = spec.family(cell)
+        ref = family.judge(cfg.model.model_dump(), cfg.engine.model_dump(), cfg.model.model_path, device)
+        ctl = family.judge(cfg.model.model_dump(), cfg.engine.model_dump(), cfg.model.model_path, device, numerics)
         loop = spec.loop(cell)
         requests = loop.requests(gen, cell.mix)
         voice_of = check.voice_of(voices, open(cfg.voice_cloning.default_voice_path, "rb").read())

@@ -6,7 +6,8 @@ From the root of a checkout. Set-up (`setup_s`, timed from the start of this
 process to the service's readiness): the port's `TTSService` on the cell's
 configuration, warm-up of the cell's shapes, and the loop's own set-up (its
 voices). Then `ramp_s` seconds of traffic that no metric counts, the window of
-`--seconds`, the check against the plain reference (check.py), and
+`--seconds`, the check against the plain reference of the configuration's model
+family (`families/<family>.py`, check.py), and
 the result: the last line of standard output is one JSON object with `correct`,
 `attempted`, `failed`, `metrics`, `device` (and `breakdown` with `--trace 1`), the
 numbers compared last under `check`; the same numbers are the last lines of
@@ -72,7 +73,7 @@ async def run_cell(cell, args, device: str, tmp: str) -> dict:
 
     from tts_bench import check, host, loadgen, serve, spec, trace
 
-    loop = spec.loop(cell)
+    loop, family = spec.loop(cell), spec.family(cell)
     cfg = serve.port_config(cell, args.seed, device, tmp)
     gen = loadgen.Generator(cell.mix, args.seed)
     voices = serve.make_voices(cell, args.seed)
@@ -82,7 +83,7 @@ async def run_cell(cell, args, device: str, tmp: str) -> dict:
     probe = None
     if args.trace:
         probe = trace.Probe()
-        trace.install(svc, probe)
+        trace.install(svc, probe, family)
         trace.warm_profiler()
 
     t0 = time.perf_counter() + 0.05
@@ -124,7 +125,7 @@ async def run_cell(cell, args, device: str, tmp: str) -> dict:
         torch.cuda.empty_cache()
 
     measured = window.measured
-    judge = check.Judge(cfg.model.model_dump(), cfg.engine.model_dump(), cfg.model.model_path, dev)
+    judge = family.judge(cfg.model.model_dump(), cfg.engine.model_dump(), cfg.model.model_path, dev)
     voice_of = check.voice_of(voices, open(cfg.voice_cloning.default_voice_path, "rb").read())
     picked = check.sample(measured, cell.mix, args.seed)
     numbers, other = check.judge(measured, picked, judge, voice_of, cell.mix["exaggeration"], cell.limits)

@@ -8,7 +8,15 @@ part of a cell sits in a file of its own under this folder, found by its name:
     of the numbers that decide `correct` (check.py);
   * `configs/<config>.json`: a model configuration: the port `Config` fields it
     sets (`model`, `engine`), its checkpoint, the weights the benchmark makes,
-    its source and what was cut or assumed;
+    its source and what was cut or assumed, and the model family it belongs to
+    (`family`; without the key, `nova`);
+  * `families/<family>.py`: what the benchmark knows of a model family, beside the
+    port's code of it: `judge(model, engine, checkpoint, device, numerics)` (its
+    plain reference, with check.Judge's surface), `pass_ops(m, key)` (the
+    operations of a pass trace.py counted), `vocoder_ops(m, b, frames)` and
+    `vocoder_bytes(m, b, frames)` (its vocoder's roofline), `VOCODER_FORWARDS` (the
+    modules of `gonova_tts_tpu_torch.models` whose `forward` trace.py ranges), and
+    optionally `install(svc, probe)` (its own counting, after trace.py's);
   * `traffic/<mix>.json`: a traffic mix: the parameters of its text (`loadgen.py`)
     and of its loop, named by `loop`;
   * `loops/<loop>.py`: how a mix's requests arrive and which entry of the service
@@ -20,7 +28,8 @@ part of a cell sits in a file of its own under this folder, found by its name:
   * `metrics/<metric>.py`: the reader of a metric; a name with a dot falls back
     to the reader of its first part (`batch_fill.live` → `metrics/batch_fill.py`).
 
-Adding a cell, a mix, a loop, a configuration or a metric adds files and edits none.
+Adding a cell, a mix, a loop, a configuration, a model family or a metric adds files
+and edits none.
 """
 
 from __future__ import annotations
@@ -110,10 +119,16 @@ def loop(cell: Cell):
     return module("loops", cell.mix["loop"], cell.here)
 
 
+def family(cell: Cell):
+    """The module of the model family a cell's configuration names (see the module
+    docstring)."""
+    return module("families", cell.config.get("family", "nova"), cell.here)
+
+
 def names(kind: str, here: str = HERE) -> List[str]:
     """Every name of a kind of file: `workloads`, `configs`, `traffic`, `loops`,
-    `weights`, `metrics`."""
-    ext = ".py" if kind in ("metrics", "loops", "weights") else ".json"
+    `families`, `weights`, `metrics`."""
+    ext = ".py" if kind in ("metrics", "loops", "families", "weights") else ".json"
     d = os.path.join(here, kind)
     return sorted(f[: -len(ext)] for f in os.listdir(d) if f.endswith(ext) and not f.startswith("_"))
 

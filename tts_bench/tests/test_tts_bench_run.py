@@ -86,7 +86,7 @@ def test_a_loop_dropped_in_runs(tmp, tmp_path):
     """A new kind of traffic is a loop module, a mix and a cell, each a new file: the
     harness finds them in a copy of the folder and runs the cell with no edit."""
     here = tmp_path / "tts_bench"
-    for kind in ("workloads", "configs", "traffic", "loops", "weights", "metrics"):
+    for kind in ("workloads", "configs", "traffic", "loops", "families", "weights", "metrics"):
         shutil.copytree(os.path.join(spec.HERE, kind), here / kind)
     (here / "loops" / "burst.py").write_text(BURST)
     mix = dict(json.load(open(here / "traffic" / "live.json")), loop="burst", burst=4.0, on_s=0.5, period_s=1.0)
@@ -103,6 +103,43 @@ def test_a_loop_dropped_in_runs(tmp, tmp_path):
     info, result = _run(cell)
     assert result["correct"] is True and result["attempted"] > 0
     assert set(result["metrics"]) == {"setup_s", "ttfa_p50_ms", "ttfa_p95_ms"}
+
+
+QUIET = '''"""A family whose reference is nova's at a quarter of its loudness."""
+
+from tts_bench import spec
+
+NOVA = spec.module("families", "nova")
+VOCODER_FORWARDS, pass_ops, vocoder_ops, vocoder_bytes = NOVA.VOCODER_FORWARDS, NOVA.pass_ops, NOVA.vocoder_ops, NOVA.vocoder_bytes
+
+
+def judge(*args, **kw):
+    j = NOVA.judge(*args, **kw)
+    speak = j.speak
+    j.speak = lambda *a: 0.25 * speak(*a)
+    return j
+'''
+
+
+def test_a_family_dropped_in_runs(tmp, tmp_path):
+    """A configuration that names a family added as a file is judged by that family's
+    reference: one a quarter as loud as the served model makes the run not correct."""
+    here = tmp_path / "tts_bench"
+    for kind in ("workloads", "configs", "traffic", "loops", "families", "weights", "metrics"):
+        shutil.copytree(os.path.join(spec.HERE, kind), here / kind)
+    (here / "families" / "quiet.py").write_text(QUIET)
+    config = dict(json.load(open(here / "configs" / "nova-vocos-demo.json")), name="quiet-demo", family="quiet")
+    (here / "configs" / "quiet-demo.json").write_text(json.dumps(config))
+    entry = {"config": "quiet-demo", "traffic": "live", "chips": 1, "why": "a quiet reference",
+             "params": {}, "limits": {"mel_db": 0.5, "frames_pct": 1.0}}
+    (here / "workloads" / "quiet-live.json").write_text(json.dumps(entry))
+    bench = spec.benchmark()
+    bench = dict(bench, workloads=bench["workloads"] + [{"name": "quiet-live", **{k: entry[k] for k in ("config", "traffic", "chips", "why")}}])
+    cell = _tiny.cell("quiet-live", tmp, here=str(here), bench=bench)
+    assert spec.family(cell).__file__ == str(here / "families" / "quiet.py")
+    _, result = _run(cell)
+    assert result["correct"] is False and result["failed"] == 0
+    assert result["check"]["mel_db"]["value"] > result["check"]["mel_db"]["limit"]
 
 
 def _broken(monkeypatch, fault):

@@ -1,17 +1,21 @@
 """What a `--trace 1` run reads besides the clock, all put in from this file:
 
-  * counters: `DynamicBatcher.metrics` and `TTSEngine.get_stats()` at the window's
-    start and end;
+  * counters: at the window's start and end, `DynamicBatcher.metrics`, every number
+    of `TTSEngine.get_stats()` by its dotted name, and the histogram of every span
+    of the engine's tracer (the service and the batcher record into the same one);
+    `delta` and `span_window` give a reader the window's change in one of them;
   * spans: `text_to_ids` where the batcher calls it (host time per call);
   * pass shapes: each engine pass's (batch, token bucket, frame bucket), counted at
     the calls into `models.tts`;
   * the device: `torch.profiler` over a sub-window of `trace_s` seconds that starts
     `trace_at_s` into the window (all threads), with `record_function` ranges
-    around the vocoder's forward and the fused mel; an open-loop cell that clones
+    around the forward of each vocoder module the cell's family names
+    (`VOCODER_FORWARDS`) and around the fused mel; an open-loop cell that clones
     voices starts it half a second before the first cloning request due after
     `trace_at_s`, so that a voice is embedded inside it.
 
-Nothing here is installed in a `--trace 0` run.
+A family counts what it does outside these calls in its own `install(svc, probe)`,
+which `install` calls last. Nothing here is installed in a `--trace 0` run.
 """
 
 from __future__ import annotations
@@ -51,18 +55,55 @@ class Probe:
         self._restore.clear()
 
 
+def _numbers(tree: Dict, prefix: str = "") -> Dict[str, float]:
+    """Every int or float leaf of a nested dict, by its dotted path (bools left out)."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(_numbers(v, f"{prefix}{k}."))
+        elif isinstance(v, (int, float)) and not isinstance(v, bool):
+            out[f"{prefix}{k}"] = v
+    return out
+
+
 def counters(svc) -> Dict:
-    stats = svc.synthesizer.engine.get_stats()
+    engine = svc.synthesizer.engine
+    stats = engine.get_stats()
     return {"batcher": dict(svc.batcher.metrics),
-            "engine": {k: stats[k] for k in ("real_tokens", "padded_tokens", "batches", "batched_requests")}}
+            "engine": {k: stats[k] for k in ("real_tokens", "padded_tokens", "batches", "batched_requests")},
+            "stats": _numbers({k: v for k, v in stats.items() if k != "timers"}),
+            "spans": engine.tracer.histograms()}
 
 
-def install(svc, probe: Probe) -> None:
+def delta(ctx, name: str) -> Optional[float]:
+    """The window's change in the engine counter `name` (a dotted key of
+    `counters()["stats"]`; absent at the start: 0); None without a probe or where
+    the counter is absent at the end."""
+    if ctx.probe is None or name not in ctx.probe.counters1["stats"]:
+        return None
+    return ctx.probe.counters1["stats"][name] - ctx.probe.counters0["stats"].get(name, 0)
+
+
+def span_window(ctx, name: str) -> Optional[dict]:
+    """The window's `count`, `sum_s` and cumulative `buckets` (at the tracer's
+    bounds and above) of the span `name`: the difference of its histograms at the
+    window's edges; None without a probe or where the span was never recorded."""
+    if ctx.probe is None or name not in ctx.probe.counters1["spans"]:
+        return None
+    b = ctx.probe.counters1["spans"][name]
+    a = ctx.probe.counters0["spans"].get(name, {"count": 0, "sum_s": 0.0, "buckets": [0] * len(b["buckets"])})
+    return {"count": b["count"] - a["count"], "sum_s": b["sum_s"] - a["sum_s"],
+            "buckets": [y - x for x, y in zip(a["buckets"], b["buckets"])]}
+
+
+def install(svc, probe: Probe, family) -> None:
+    import importlib
+
     from torch.profiler import record_function
 
     from gonova_tts_tpu_torch.engine import batcher as batcher_mod
     from gonova_tts_tpu_torch.engine import engine as engine_mod
-    from gonova_tts_tpu_torch.models import tts, vocoder, vocoder_folded, vocos
+    from gonova_tts_tpu_torch.models import tts
 
     to_ids = batcher_mod.text_to_ids
 
@@ -105,7 +146,8 @@ def install(svc, probe: Probe) -> None:
                 return fn(params, mel, *args, **kw)
         return wrapped
 
-    for mod in (vocos, vocoder, vocoder_folded):
+    for name in family.VOCODER_FORWARDS:
+        mod = importlib.import_module(f"gonova_tts_tpu_torch.models.{name}")
         probe.patch(mod, "forward", ranged(mod.forward, "vocoder"))
 
     mel = engine_mod.mel_spectrogram_fused
@@ -116,6 +158,8 @@ def install(svc, probe: Probe) -> None:
             return mel(x, *args, **kw)
 
     probe.patch(engine_mod, "mel_spectrogram_fused", ranged_mel)
+    if hasattr(family, "install"):
+        family.install(svc, probe)
 
 
 def _profiler():
