@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --phase parallel   # phase 11 alone (after the build), for a multi-card machine
+    python3 chip_smoke.py --phase snake      # the anti-aliased Snake-beta's cases alone (after the build)
 
 Phases; any failure exits non-zero before the final line:
   1. device: name and power limit (nvidia-smi); no card → exit 3, no result.
@@ -27,6 +28,12 @@ Phases; any failure exits non-zero before the final line:
      the tensor-core route) against eight calls of its plain version, where
      torch.profiler also counts the device kernels the chain ran (two of the shared
      GEMM's `gemm_tc_kernel` a block).
+     BigVGAN-v2's anti-aliased Snake-beta (`ops.snake_aa`, no TPU counterpart) at B=4
+     T=256 frames and B=16 T=448 frames, at stages 1 (768 channels, 4 samples a frame)
+     and 5 (48 channels, 128 samples a frame), bf16 (and f32 at one shape), against its
+     plain version (SNAKE_BF16_STEP); its bound counts 58 operations and, in bf16,
+     2 + 2 bytes a sample (`snake_cost`). Its launches are counted on the bigvgan
+     cell's path, in the phase after `service` (below).
   4. engine: the demo checkpoint (assets/checkpoints/demo_ema_f16.npz, full width,
      30.1 M parameters) in bf16 with both kernel switches on — batch one-graph and
      two-stage, streaming, a 128-token sentence whose decoder takes the plain
@@ -47,6 +54,11 @@ Phases; any failure exits non-zero before the final line:
      concurrency 1 and 4 rounds of 4 connections; synthesize_full (REST without HTTP);
      the /health and /metrics bodies; shutdown. Launch counts reset after start() and
      read before shutdown: the mel, transformer and Vocos kernels each launched.
+     Then BigVGAN-v2 on the bigvgan-narrate cell's path (`run_bigvgan_service`): a
+     TTSService (bf16, CUDA graphs captured at warm-up) over the demo checkpoint's
+     acoustic model and speaker encoder, a 100-band mel head and the published
+     generator from seed 0; counts from zero just before eight synthesize_full calls
+     and read after: every pass replayed, 109 `snake_aa` launches a pass.
   7. parity: parity_gpu.py's bf16 gate (parity.py's workload and limits: mel MSE <
      1e-2, MCD < 1.0 dB, MR-STFT < 0.3), f32 plain path vs bf16 with both stack
      kernels, on random weights (seed 0) and on the demo checkpoint; and the engine's
@@ -225,6 +237,12 @@ TRAIN_CARD_VS_CPU_RTOL = 1e-3
 TRAIN_STEPS = 200
 JAX_HISTORY = os.path.join("assets", "train_history_demo_r3.jsonl")
 NOT_SILENT_RMS = 1e-4  # about three PCM16 steps
+
+# One bf16 rounding step between two f32 results of the same activation (kernel and
+# plain, the kernel's sine the hardware's), plus the f32 noise of values near 0.
+SNAKE_BF16_STEP = (2.0 ** -7, 1e-4)
+SNAKE_F32_REL = 2e-6
+SNAKE_OPS_PER_SAMPLE = 58  # 24 upsampling, 10 Snake, 24 downsampling (the benchmark's count)
 
 H100_BYTES_PER_S = 3.35e12
 # Dense tensor-core bf16; f32 off the tensor cores; f32-grade products as split TF32 on
@@ -486,6 +504,135 @@ def mel_cases(torch, dev, rng):
             "gflop": flops / 1e9,
         })
     return cases
+
+
+def snake_cost(b: int, c: int, t: int, elem: int):
+    """(operations, bytes) of one anti-aliased activation over [B, T, C]: x read and y
+    written once, alpha and 1 / beta in f32."""
+    return SNAKE_OPS_PER_SAMPLE * b * c * t, 2 * elem * b * c * t + 8 * c
+
+
+def snake_cases(torch, dev):
+    """`ops.snake_aa` against its plain version at the bigvgan-narrate cell's shapes:
+    stages 1 and 5 of the published generator at (B=4, 256 frames) and (B=16, 448
+    frames), bf16, and stage 5 at B=4 in f32; x lies as the convs leave it ([B, C, T])."""
+    from gonova_tts_tpu_torch.ops import snake_aa as sa
+    from gonova_tts_tpu_torch.ops.gemm_tc_sweep import graph_ms
+
+    cases = []
+    shapes = [(b, frames, stage, c, per) for b, frames in ((4, 256), (16, 448))
+              for stage, c, per in ((1, 768, 4), (5, 48, 128))]
+    for (b, frames, stage, c, per), dtype in [(s, torch.bfloat16) for s in shapes] + [(shapes[1], torch.float32)]:
+        t = frames * per
+        g = torch.Generator(device=dev).manual_seed(b * 7 + stage)
+        x = (torch.randn((b, c, t), generator=g, device=dev) * 2.0).transpose(1, 2).to(dtype)
+        consts = sa.constants(torch.randn(c, generator=g, device=dev) * 0.1, torch.randn(c, generator=g, device=dev) * 0.1)
+        out, ref = sa.snake_aa(x, *consts), sa.snake_aa_plain(x, *consts)
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs()
+        if dtype == torch.bfloat16:
+            rel, atol = SNAKE_BF16_STEP
+            ok, tol = bool((err <= rel * ref.float().abs() + atol).all()), f"{rel} * |plain| + {atol}"
+        else:
+            ok = float(err.max()) <= SNAKE_F32_REL * max(1.0, float(ref.abs().max()))
+            tol = f"{SNAKE_F32_REL} * max(1, |plain|)"
+        ops_n, moved = snake_cost(b, c, t, x.element_size())
+        bound_ms, bound_by = bound(moved, ops_n, "float32")
+        device_ms = graph_ms(lambda: sa.snake_aa(x, *consts), 10)
+        cases.append({
+            "case": f"stage {stage} C={c} B={b} T={frames} frames ({t} samples)", "dtype": name_of(dtype),
+            "max_abs_err": float(err.max()), "tolerance": tol, "ok": ok and out.shape == x.shape,
+            "ms": cuda_ms(lambda: sa.snake_aa(x, *consts), 10), "device_ms": device_ms,
+            "plain_ms": cuda_ms(lambda: sa.snake_aa_plain(x, *consts), 3),
+            "bound_ms": bound_ms, "bound_by": bound_by, "bound_share_pct": 100.0 * bound_ms / device_ms,
+            "gbytes": moved / 1e9,
+        })
+        del x, out, ref
+    return cases
+
+
+BIGVGAN_V2 = dict(vocoder_family="bigvgan", n_mels=100, speaker_n_mels=80, upsample_initial_channel=1536,
+                  upsample_rates=[4, 4, 2, 2, 2, 2], upsample_kernels=[8, 8, 4, 4, 4, 4],
+                  resblock_kernels=[3, 7, 11], resblock_dilations=[[1, 3, 5]] * 3)
+
+
+def run_bigvgan_service(torch, np, report):
+    """BigVGAN-v2 on the path the bigvgan-narrate cell serves: a TTSService (bf16,
+    the acoustic kernels, the engine's default dispatch and its CUDA graphs captured at
+    warm-up) over the demo checkpoint's acoustic model and speaker encoder, with a
+    100-band mel head and the published generator from seed 0. Launch counts and the
+    engine's pass counters from zero just before eight synthesize_full calls (the REST
+    method), read just after: every pass replayed, and 109 `snake_aa` launches for
+    each pass's one vocoder forward."""
+    from gonova_tts_tpu_torch import ops
+    from gonova_tts_tpu_torch.config import Config, EngineConfig, ModelConfig
+    from gonova_tts_tpu_torch.models import bigvgan
+    from gonova_tts_tpu_torch.service import TTSService
+
+    mcfg = ModelConfig(**BIGVGAN_V2, compute_dtype="bfloat16")
+    demo = np.load(DEMO)
+    tree = {k: demo[k] for k in demo.files if k.startswith(("acoustic/", "speaker/")) and "mel_out" not in k}
+    g = torch.Generator().manual_seed(0)
+    gen = bigvgan.init(g, mcfg)
+    tree.update({f"vocoder/{k.replace('.', '/')}": v.half().numpy() for k, v in gen.state_dict().items()})
+    d_model = demo["acoustic/mel_out/w"].shape[0]
+    tree["acoustic/mel_out/w"] = (torch.randn((d_model, 100), generator=g) * (2.0 / (d_model + 100)) ** 0.5).half().numpy()
+    tree["acoustic/mel_out/b"] = np.zeros((100,), np.float16)
+    del gen
+    out = {}
+
+    async def drive(path):
+        cfg = Config()
+        cfg.model = mcfg.model_copy(update={"model_path": path})
+        # Every batch bucket at the sentences' token buckets, so that each pass has a graph.
+        cfg.engine = EngineConfig(acoustic_pallas=True, warmup_shapes=[[b, t] for b in (1, 4, 8, 16) for t in (32, 64)])
+        cfg.voice_cloning.default_voice_path = None
+        cfg.logging.level = "WARNING"
+        t0 = time.perf_counter()
+        svc = TTSService(cfg)
+        await svc.start()
+        out["start_s"] = time.perf_counter() - t0
+        eng = svc.synthesizer.engine
+        out["graphs_captured"] = eng.stats["graphs_captured"]
+        before = {k: eng.stats[k] for k in ("graph_passes", "eager_passes")}
+        ops.reset_launch_counts()
+        docs = [" ".join(SENTENCES[i:] + SENTENCES[:i]) for i in range(len(SENTENCES))] * 2
+        audio = await asyncio.gather(*[svc.synthesize_full(d) for d in docs])
+        torch.cuda.synchronize()
+        launches = ops.launch_counts()
+        passes = {k: eng.stats[k] - v for k, v in before.items()}
+        await svc.shutdown()
+        return audio, launches, passes
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "bigvgan_v2.npz")
+        np.savez(path, **tree)
+        del tree
+        audio, launches, passes = asyncio.run(drive(path))
+    forwards = passes["graph_passes"] + passes["eager_passes"]
+    out.update(requests=len(audio), passes=passes, vocoder_forwards=forwards, launches=launches,
+               audio_s=sum(a.size for a in audio) / 24000)
+    checks = {
+        "bigvgan_audio_finite_nonempty": all(a.size > 0 and np.isfinite(a).all() for a in audio),
+        "bigvgan_every_pass_replayed": forwards > 0 and passes["eager_passes"] == 0,
+        "bigvgan_snake_aa_109_a_forward": launches.get("snake_aa", 0) == 109 * forwards,
+    }
+    out["checks"] = checks
+    report["bigvgan"] = out
+    return launches, checks
+
+
+def snake_entry(cases, bigvgan: dict) -> dict:
+    """`launches`: the count on the bigvgan service path (`run_bigvgan_service`)."""
+    rep = next(c for c in cases if c["case"].startswith("stage 1 C=768 B=16") and c["dtype"] == "bfloat16")
+    return {
+        "name": "snake_aa", "route": "cuda", "source": "gonova_tts_tpu_torch/csrc/snake_aa.cu",
+        "replaces": None, "launches": bigvgan["launches"].get("snake_aa", 0),
+        "vocoder_forwards": bigvgan["vocoder_forwards"],
+        "max_abs_err": max(c["max_abs_err"] for c in cases),
+        **{k: rep[k] for k in ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by")}, "library_ms": None,
+        "at": f"{rep['case']} bfloat16", "cases": cases,
+    }
 
 
 def block_weights(blk):
@@ -2348,6 +2495,7 @@ def run_bench(torch, np, report, dev="cuda"):
 
 def main() -> None:
     only_parallel = sys.argv[1:] == ["--phase", "parallel"]  # the cross-card phase alone, on a multi-card machine
+    only_snake = sys.argv[1:] == ["--phase", "snake"]
     try:
         import numpy as np
         import torch
@@ -2383,6 +2531,24 @@ def main() -> None:
             "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
         }}), flush=True)
         return
+    if only_snake:
+        sn_cases = snake_cases(torch, dev)
+        for c in sn_cases:
+            print("kernel case: " + json.dumps(c), flush=True)
+        report = {}
+        _, bigvgan_checks = run_bigvgan_service(torch, np, report)
+        print("bigvgan: " + json.dumps(report["bigvgan"]), flush=True)
+        snake = snake_entry(sn_cases, report["bigvgan"])
+        print(json.dumps({"kernels": [snake]}), flush=True)
+        bad = [f"{c['case']} {c['dtype']}" for c in sn_cases if not c["ok"]]
+        bad += [k for k, v in bigvgan_checks.items() if not v]
+        bad += ["snake_aa never launched on its path"] if snake["launches"] <= 0 else []
+        if bad:
+            fail(f"checks failed: {bad}")
+        print(smi, flush=True)
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": 1}}),
+              flush=True)
+        return
     model, _ = params.load_checkpoint(DEMO, ModelConfig(), dev)
     rng = np.random.default_rng(0)
     gm_cases = gemm_cases(torch, dev, np.random.default_rng(1))  # its own stream: the kernel cases keep their inputs
@@ -2394,7 +2560,8 @@ def main() -> None:
     cb_cases = convnext_cases(model, torch, dev, rng)
     chain = convnext_chain(model, torch, dev, rng)
     chain_bf16 = convnext_chain_bf16(model, torch, dev, rng)
-    for c in ts_cases + vs_cases + mel_cs + cb_cases + [chain, chain_bf16]:
+    sn_cases = snake_cases(torch, dev)
+    for c in ts_cases + vs_cases + mel_cs + cb_cases + [chain, chain_bf16] + sn_cases:
         print("kernel case: " + json.dumps(c), flush=True)
     kernel_checks = {"shape_independent_bf16": shape_independent_bf16(model, torch, dev, rng)}
     print("kernel checks: " + json.dumps(kernel_checks), flush=True)
@@ -2407,6 +2574,8 @@ def main() -> None:
         **report["voice_path"]), flush=True)
     service_launches, service_checks = run_service(torch, np, report)
     print("service: " + json.dumps(report["service"]), flush=True)
+    _, bigvgan_checks = run_bigvgan_service(torch, np, report)
+    print("bigvgan: " + json.dumps(report["bigvgan"]), flush=True)
     parity_launches, parity_checks = run_parity(torch, np, report)
     print("parity: " + json.dumps(report["parity"]), flush=True)
     corpus_dir = tempfile.TemporaryDirectory()  # the demo corpus: the train phase writes it, grade and tools read it
@@ -2484,10 +2653,11 @@ def main() -> None:
               "B=4 T=320", "x bfloat16, mlp bfloat16", chain["launches"] + chain_bf16["launches"],
               launches_f32_chain=chain["launches"], launches_bf16_chain=chain_bf16["launches"],
               gemm_tc_kernels_bf16_chain=chain_bf16["gemm_tc_kernels"]),
+        snake_entry(sn_cases, report["bigvgan"]),
     ]
     bad = [f"{c['case']} {c['dtype']}" for c in gm_cases + ts_cases + vs_cases + mel_cs + cb_cases + [chain, chain_bf16]
-           if not c["ok"]]
-    bad += [k for k, v in {**kernel_checks, **checks, **voice_checks, **service_checks, **parity_checks,
+           + sn_cases if not c["ok"]]
+    bad += [k for k, v in {**kernel_checks, **checks, **voice_checks, **service_checks, **bigvgan_checks, **parity_checks,
                            **train_checks, **hifigan_checks, **gan_checks, **parallel_checks, **native_checks,
                            **g2p_checks, **grade_checks, **tools_checks, **bench_checks}.items() if not v]
     bad += [f"{k['name']} never launched on its path" for k in kernels if k["launches"] <= 0]

@@ -65,9 +65,17 @@ class ModelConfig(_SectionModel):
     # the kernel with local attention at T=768 only).
     local_attention_min_frames: int = 1024
 
+    # Mel bands of the voice path (the speaker encoder's input and `embed_voice`'s
+    # log-mel); None: `n_mels`. A vocoder trained on another mel than the speaker
+    # encoder (BigVGAN-v2 at 100 bands beside an 80-band encoder) sets it.
+    speaker_n_mels: Optional[int] = None
+
     # --- vocoder family selection ---
     # "vocos": iSTFT-head frame-rate vocoder (the default; every product >= 512 wide)
     # "hifigan": transposed-conv + MRF generator (HiFi-GAN parity family)
+    # "bigvgan": BigVGAN-v2's generator (models/bigvgan.py): transposed convs and
+    #   AMP blocks with the anti-aliased Snake-beta of ops/snake_aa.py; it reads the
+    #   upsample_* and resblock_* fields below
     vocoder_family: str = "vocos"
     vocos_dim: int = 512
     vocos_ff: int = 1536
@@ -129,6 +137,11 @@ class ModelConfig(_SectionModel):
     hifigan_folded: bool = True
 
     compute_dtype: str = "bfloat16"  # the engine's compute dtype; CPU tests use "float32"
+
+    @property
+    def voice_n_mels(self) -> int:
+        """Mel bands of the voice path: `speaker_n_mels`, else `n_mels`."""
+        return self.speaker_n_mels or self.n_mels
 
 
 class VoiceCloningConfig(_SectionModel):

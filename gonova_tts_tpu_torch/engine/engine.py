@@ -7,19 +7,21 @@ surface (`load`, `warmup`, `embed_voice`, `embed_voice_file`, `synthesize_batch`
   * token and batch buckets, so every device pass has one of a few shapes;
   * one-graph (`tts.synthesize`) or two-stage dispatch (`encode_acoustic`, one
     [B]-int32 readback of the frame counts, then `decode_vocode` at the smallest
-    configured frame bucket covering `total_frames.max() + stream_context_frames`);
+    configured frame bucket covering `total_frames.max()` and the vocoder's reach
+    past it, at least `stream_context_frames`: `tts.reach_frames`);
     `two_stage_batch="auto"` picks two-stage when that readback is under the
     configured threshold;
   * PCM16 transfer: the device packs `clip(wav * 32767, ±32767)` with a
     truncating int16 cast, the host unpacks `/ 32768` (`utils/native.i16_to_f32`:
     the C audio runtime, or its numpy form);
   * streaming by context-padded vocoder windows that reproduce the one-shot audio;
-  * either vocoder family (`model.vocoder_family`: NovaVocos, or the HiFi-GAN
-    generator, which no kernel serves: `vocos_pallas` does not apply to it, while
-    `acoustic_pallas` still runs both acoustic stacks through the kernel);
+  * any vocoder family (`model.vocoder_family`: NovaVocos; the HiFi-GAN
+    generator, which no kernel serves; BigVGAN-v2, whose activations run through
+    `ops.snake_aa`): `vocos_pallas` applies to NovaVocos alone, while
+    `acoustic_pallas` runs both acoustic stacks through the kernel for every family;
   * voice embedding: reference audio → 24 kHz → a fixed 10 s zero-padded analysis
-    buffer → log-mel (the fused kernel on CUDA under `engine.mel_pallas`) →
-    speaker encoder.
+    buffer → log-mel of `model.voice_n_mels` bands (the fused kernel on CUDA under
+    `engine.mel_pallas`) → speaker encoder.
 
 PyTorch runs eagerly, so there is no compile cache. On a card with one replica,
 `warmup` captures every warmed shape as CUDA graphs (`models/graphs.py`) and a
@@ -51,6 +53,7 @@ import torch.nn.functional as F
 
 from ..audio.mel import mel_spectrogram
 from ..audio.resample import resample
+from .. import ops
 from ..config import Config
 from ..device import resolve_device
 from ..models import graphs
@@ -307,9 +310,7 @@ class TTSEngine:
             self.stats["graphs_captured"] = len(self._graphs or ())
             stride = self.ecfg.stream_chunk_frames
             ctx = min(self.ecfg.stream_context_frames, stride)
-            # The JAX engine's rule, kept as it is: it reads vocos_layers whatever
-            # the vocoder family.
-            rf_exact = 3 * (self.mcfg.vocos_layers + 1) + 2
+            rf_exact = tts.reach_frames(self.mcfg)
             if ctx < rf_exact:
                 logger.warning(
                     "stream context %d is below the exactness bound %d (configured %d)",
@@ -376,7 +377,7 @@ class TTSEngine:
             with span("engine.embed.mel"):
                 mel = (mel_spectrogram_fused if fused else mel_spectrogram)(
                     buf, sr=self.sample_rate, n_fft=self.mcfg.n_fft, hop_length=self.hop,
-                    win_length=self.mcfg.win_length, n_mels=self.mcfg.n_mels, fmin=self.mcfg.fmin,
+                    win_length=self.mcfg.win_length, n_mels=self.mcfg.voice_n_mels, fmin=self.mcfg.fmin,
                     fmax=self.mcfg.fmax,
                 )
             with span("engine.embed.encoder"):
@@ -483,7 +484,9 @@ class TTSEngine:
             # The one [B] readback; the frame bucket covers the whole batch.
             with span("engine.readback"):
                 total_frames = np.concatenate([e["total_frames"].cpu().numpy() for e in encs])
-            need = int(total_frames.max()) + self.ecfg.stream_context_frames
+            # Zero frames past the longest sentence, so that no sample of it sees the
+            # bucket's edge (the JAX engine adds stream_context_frames alone).
+            need = int(total_frames.max()) + max(self.ecfg.stream_context_frames, tts.reach_frames(self.mcfg))
             fb = min((x for x in self.ecfg.vocode_frame_buckets if x >= need), default=t_full)
             fb = min(fb, t_full)
             if (batch_bucket, bucket, fb) not in self._vocode_shapes_seen:
@@ -625,6 +628,9 @@ class TTSEngine:
             if self.stats["padded_tokens"] else 1.0
         )
         stats["timers"] = self.tracer.summary()
+        # The hand kernels' launches in this process (replays included): every engine
+        # of the process shares these counters.
+        stats["kernel_launches"] = ops.launch_counts()
         stats["two_stage_dispatch"] = self.two_stage_enabled
         from ..text import g2p
 

@@ -43,6 +43,7 @@ from typing import Callable, Dict, Optional, Sequence
 import torch
 
 from .. import ops
+from ..utils import prof
 
 _LOCAL = threading.local()
 
@@ -108,10 +109,12 @@ def _launch_range(name: str):
     """A profiler op around a replay (`graph:<name>`), for the replayed kernels to be
     linked to. A kernel is attributed to the op that launched it, and a replay runs
     inside no op: within a `record_function` range alone its kernels would count for
-    no range. `RecordFunctionFast` records an op, as a library call does, and costs
-    nothing while no profiler records."""
+    no range. `RecordFunctionFast` records an op, as a library call does. It is
+    opened only while a profiler records: it asks whether one does when it opens and
+    again when it closes, and raises where a profiler started in between (a traced
+    window opening during a replay failed a pass that way)."""
     fast = getattr(torch._C._profiler, "_RecordFunctionFast", None)
-    return fast(f"graph:{name}") if fast is not None else contextlib.nullcontext()
+    return fast(f"graph:{name}") if fast is not None and prof.profiling() else contextlib.nullcontext()
 
 
 def _count(launches: Dict[str, int], sign: int) -> None:

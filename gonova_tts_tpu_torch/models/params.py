@@ -136,7 +136,8 @@ def from_numpy_tree(tree: Dict[str, Any], cfg: ModelConfig, device=None, with_al
     the same path and shape, and every parameter must be covered; other top-level
     subtrees are skipped (serving skips a training-time aligner). The vocoder is the
     family `cfg.vocoder_family` names (a HiFi-GAN tree nests lists:
-    `vocoder/mrfs/i/j/convs1/k/w`). `cfg` should already carry
+    `vocoder/mrfs/i/j/convs1/k/w`; a BigVGAN tree `vocoder/amps/i/j/convs1/d/w` and
+    `vocoder/acts/i/j/a1/d/alpha`). `cfg` should already carry
     `infer_vocos_head`'s answer."""
     served = ("acoustic", "vocoder", "speaker") + (("aligner",) if with_aligner else ())
     return _load_strict(TTS(cfg, with_aligner=with_aligner), {k: tree[k] for k in served if k in tree}, device)

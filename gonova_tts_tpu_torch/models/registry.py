@@ -15,7 +15,7 @@ from typing import Callable, Dict
 import torch
 
 from ..config import ModelConfig
-from . import acoustic, speaker, tts, vocoder, vocos
+from . import acoustic, bigvgan, speaker, tts, vocoder, vocos
 
 
 @dataclass(frozen=True)
@@ -81,6 +81,15 @@ register(
         description="iSTFT-head frame-rate vocoder (Vocos-class, the serving vocoder)",
         init=vocos.init,
         forward=vocos.forward,
+    )
+)
+register(
+    ModelFamily(
+        name="bigvgan",
+        kind="vocoder",
+        description="BigVGAN-v2 generator (mel → waveform; AMP blocks, anti-aliased Snake-beta kernel)",
+        init=bigvgan.init,
+        forward=bigvgan.forward,
     )
 )
 register(

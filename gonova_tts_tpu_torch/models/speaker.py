@@ -1,6 +1,7 @@
 """NovaSpk: speaker encoder for one-shot voice cloning.
 
-Counterpart of `gonova_tts_tpu/models/speaker.py`. Reference log-mel → three
+Counterpart of `gonova_tts_tpu/models/speaker.py`. Reference log-mel (of
+`ModelConfig.voice_n_mels` bands) → three
 stride-2 convs (ReLU, then LayerNorm) → masked mean + std pooling → dense →
 L2-normalized embedding.
 """
@@ -18,7 +19,7 @@ from .layers import Tree
 
 def init(g: torch.Generator, cfg: ModelConfig, hidden: int = 256) -> Tree:
     return layers.group(
-        c1=layers.conv1d_init(g, cfg.n_mels, hidden, 5),
+        c1=layers.conv1d_init(g, cfg.voice_n_mels, hidden, 5),
         c2=layers.conv1d_init(g, hidden, hidden, 5),
         c3=layers.conv1d_init(g, hidden, hidden, 3),
         ln1=layers.layernorm_init(hidden),

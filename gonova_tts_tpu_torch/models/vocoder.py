@@ -16,6 +16,7 @@ is the JAX '/' path with dots.
 
 from __future__ import annotations
 
+import math
 from typing import List, Mapping, Sequence, Tuple
 
 import torch
@@ -102,6 +103,24 @@ def upsample_factor(cfg: ModelConfig) -> int:
     for r in cfg.upsample_rates:
         f *= r
     return f
+
+
+def reach_frames(cfg: ModelConfig, act_reach: int = 0) -> int:
+    """Mel frames on each side that one output sample can depend on, for this
+    generator's layout (conv_pre, per stage a transposed conv and the mean of the
+    residual blocks, conv_post): each layer's one-sided reach in the samples it reads,
+    over the samples a mel frame has there, summed and rounded up. `act_reach`: the
+    samples each side one activation reads (0 for a pointwise one; BigVGAN's
+    anti-aliased Snake-beta reads 5). HiFi-GAN V1 at 24 kHz: 14; BigVGAN-v2: 39."""
+    reach, per = 7 // 2, 1  # conv_pre, k=7, at one sample a frame
+    for rate, kernel in zip(cfg.upsample_rates, cfg.upsample_kernels):
+        # An output n of the transposed conv (padding (k - u) // 2) reads inputs
+        # (n + pad - j) / u, j < k: at most (k - 1 - pad) / u from n / u.
+        reach += (kernel - 1 - (kernel - rate) // 2) / rate / per
+        per *= rate
+        reach += max(sum(2 * act_reach + k // 2 * (d + 1) for d in dils)
+                     for k, dils in zip(cfg.resblock_kernels, cfg.resblock_dilations)) / per
+    return math.ceil(reach + (act_reach + 7 // 2) / per)  # the last activation and conv_post
 
 
 # ---------------------------------------------------------------- discriminators

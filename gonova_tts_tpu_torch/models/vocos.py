@@ -89,6 +89,12 @@ def init(g: torch.Generator, cfg: ModelConfig) -> Vocos:
     return Vocos(cfg, g)
 
 
+def reach_frames(cfg: ModelConfig) -> int:
+    """Mel frames each side that one output sample can depend on: the embedding conv's
+    and every ConvNeXt block's 3 (k=7), and the iSTFT's 2 (n_fft = 4 hops)."""
+    return 3 * (cfg.vocos_layers + 1) + 2
+
+
 def forward(params: Mapping, mel: torch.Tensor, cfg: ModelConfig, dtype=torch.float32) -> torch.Tensor:
     """mel [B, T, n_mels] → waveform [B, T * hop] (f32). Replayed from a CUDA graph
     where the serving pass has one (`graphs.run`)."""

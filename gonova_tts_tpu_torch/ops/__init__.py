@@ -6,6 +6,7 @@
 | `vocos_stack.vocos_stack` | `gonova_tts_tpu/ops/vocos_stack_kernel.py` `vocos_stack_pallas` | `csrc/vocos_stack.cu` |
 | `mel_spectrogram.mel_spectrogram` | `gonova_tts_tpu/ops/mel_kernel.py` `mel_spectrogram_pallas` | `csrc/mel_spectrogram.cu` |
 | `convnext_block.convnext_block` | `gonova_tts_tpu/ops/convnext_kernel.py` `convnext_block_pallas` | `csrc/convnext_block.cu` |
+| `snake_aa.snake_aa` | none: BigVGAN-v2's anti-aliased Snake-beta, which the JAX package lacks | `csrc/snake_aa.cu` |
 
 In bf16 the two stacks run their products through the tensor-core GEMM of
 `csrc/gemm_tc.cuh`; `gemm_tc.gemm_tc` (`csrc/gemm_tc.cu`) is that GEMM alone, with its

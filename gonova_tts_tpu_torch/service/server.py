@@ -43,6 +43,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import ops
 from ..audio import encode as encode_mod
 from ..config import Config, load_config
 from ..engine import DynamicBatcher, VoiceEmbeddingCache
@@ -734,7 +735,8 @@ class TTSService:
 
     def metrics_prometheus(self) -> str:
         """Body of `GET /metrics?format=prometheus`: Prometheus text exposition of the
-        queue metrics, the batcher's and the engine's counters, and one histogram of
+        queue metrics, the batcher's and the engine's counters, the hand kernels'
+        launches (`gonova_tts_kernel_launches_<wrapper>`), and one histogram of
         seconds per span name (`gonova_tts_span_seconds{span=...}`)."""
         lines = []
         for key, value in self.metrics().items():
@@ -751,6 +753,9 @@ class TTSService:
                     "graph_passes", "eager_passes", "graphs_captured"):
             lines.append(f"# TYPE gonova_tts_engine_{key} {'gauge' if key == 'graphs_captured' else 'counter'}")
             lines.append(f"gonova_tts_engine_{key} {stats[key]}")
+        for kernel, n in sorted(ops.launch_counts().items()):
+            lines.append(f"# TYPE gonova_tts_kernel_launches_{kernel} counter")
+            lines.append(f"gonova_tts_kernel_launches_{kernel} {n}")
         lines += self.tracer.prometheus()
         return "\n".join(lines) + "\n"
 

@@ -49,7 +49,7 @@ RING = 1 << 16
 _CURRENT: contextvars.ContextVar = contextvars.ContextVar("gonova_span", default=None)
 
 
-def _profiling() -> bool:
+def profiling() -> bool:
     """Whether a torch.profiler records (on any thread) in this process."""
     prof = sys.modules.get("torch.autograd.profiler")
     return bool(getattr(prof, "_is_profiler_enabled", False))
@@ -136,7 +136,7 @@ class Span:
     def __enter__(self):
         self._token = _CURRENT.set(self)
         self.start = time.perf_counter_ns()
-        if _profiling():
+        if profiling():
             from torch.autograd.profiler import record_function
 
             self._rfh = record_function("gonova." + self.name)
@@ -152,6 +152,17 @@ class Span:
         _CURRENT.reset(self._token)
         self._tracer._record(self)
         return False
+
+
+def stage(name: str):
+    """`record_function("gonova.<name>")` where a recorded span is open on this thread
+    (the tracer is on) and a torch.profiler records; else a no-op. A model marks the
+    parts of an eager pass with it; a replayed graph runs no Python and marks none."""
+    if isinstance(_CURRENT.get(), Span) and profiling():
+        from torch.autograd.profiler import record_function
+
+        return record_function("gonova." + name)
+    return contextlib.nullcontext()
 
 
 class Tracer:

@@ -257,7 +257,8 @@ def suite_engines(tmp_path_factory):
         jsuite._engine(True)
     jcfg = made[0]
     cfg = bench_suite.suite_config(True, "cpu")
-    assert cfg.model.model_dump(exclude={"device"}) == jcfg.model.model_dump(exclude={"device"})
+    assert cfg.model.speaker_n_mels is None  # the port's field alone: None reads n_mels
+    assert cfg.model.model_dump(exclude={"device", "speaker_n_mels"}) == jcfg.model.model_dump(exclude={"device"})
     assert cfg.engine.model_dump() == jcfg.engine.model_dump()
     jeng = jengine.TTSEngine(jcfg)
     jeng.load(warmup=False)

@@ -24,6 +24,7 @@ from gonova_tts_tpu_torch.models import tts
 from gonova_tts_tpu_torch.ops import convnext_block as cb_op
 from gonova_tts_tpu_torch.ops import gemm_tc as gemm_op
 from gonova_tts_tpu_torch.ops import mel_spectrogram as mel_op
+from gonova_tts_tpu_torch.ops import snake_aa as snake_op
 from gonova_tts_tpu_torch.ops import transformer_stack as ts_op
 from gonova_tts_tpu_torch.ops import vocos_stack as vs_op
 
@@ -635,6 +636,7 @@ def _graph_engines(model: dict, engine: dict):
 
 
 GRAPH_CASES = {
+    "bigvgan": ({"vocoder_family": "bigvgan"}, {}),
     "vocos": ({}, {}),
     "vocos-kernels": ({"vocos_pallas": True}, {"acoustic_pallas": True}),
     "hifigan": ({"vocoder_family": "hifigan"}, {}),
@@ -716,7 +718,7 @@ def test_streaming_beside_graphs_matches_the_one_shot_pass(setup):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("family", ["vocos", "hifigan"])
+@pytest.mark.parametrize("family", ["vocos", "hifigan", "bigvgan"])
 def test_the_profiler_sees_replayed_kernels_inside_the_vocoders_range(setup, monkeypatch, family):
     """A `record_function` range around the vocoder's `forward`, as the benchmark's
     probe opens one, holds the replayed graph's device time: within a factor of two
@@ -756,3 +758,97 @@ def test_the_profiler_sees_replayed_kernels_inside_the_vocoders_range(setup, mon
         device_us[name] = ranges[0].device_time_total
     assert graphed.get_stats()["graph_passes"] == 2
     assert 0.5 * device_us["eager"] < device_us["graphed"] < 2.0 * device_us["eager"], device_us
+
+
+# ---------------------------------------------------------------- BigVGAN-v2's anti-aliased Snake-beta
+
+# (channels, samples a mel frame) of each published stage of bigvgan_v2_24khz_100band_256x
+SNAKE_STAGES = [(768, 4), (384, 16), (192, 32), (96, 64), (48, 128), (24, 256)]
+BIGVGAN_NARROW = dict(vocoder_family="bigvgan", upsample_initial_channel=128, upsample_rates=[4, 4, 2, 2, 2, 2],
+                      upsample_kernels=[8, 8, 4, 4, 4, 4], resblock_kernels=[3, 7, 11],
+                      resblock_dilations=[[1, 3, 5]] * 3)
+
+
+def _snake_inputs(b, t, c, dtype, seed, layout="rows"):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn((b, c, t) if layout == "rows" else (b, t, c), generator=g, device="cuda") * 2.0
+    x = (x.transpose(1, 2) if layout == "rows" else x).to(dtype)
+    log_a, log_b = (torch.randn(c, generator=g, device="cuda") * 0.3 for _ in range(2))
+    return x, snake_op.constants(log_a, log_b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b", [1, 16])
+@pytest.mark.parametrize("c,per_frame", SNAKE_STAGES)
+def test_snake_aa_kernel_matches_its_twin_at_the_published_stages(setup, b, c, per_frame):
+    """bf16 in and out at 448 frames, the math in f32 on both sides (the kernel's sine
+    the hardware's): where the two f32 results straddle a bf16 rounding point they
+    differ by one bf16 step, so |kernel - twin| <= 2^-7 |twin| + 1e-4, and at least
+    99% of the samples are equal. One launch a call."""
+    t = 448 * per_frame
+    x, consts = _snake_inputs(b, t, c, torch.bfloat16, b * 1000 + c)
+    before = ops.launch_counts().get("snake_aa", 0)
+    ours = snake_op.snake_aa(x, *consts)
+    plain = snake_op.snake_aa_plain(x, *consts)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["snake_aa"] == before + 1
+    assert ours.dtype == torch.bfloat16 and ours.shape == x.shape
+    diff = (ours.float() - plain.float()).abs()
+    assert bool((diff <= 2.0 ** -7 * plain.float().abs() + 1e-4).all())
+    assert float((diff == 0).float().mean()) >= 0.99
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t", [1, 2, 5, 13, 511, 512, 513, 1300])
+@pytest.mark.parametrize("c", [3, 24])
+@pytest.mark.parametrize("layout", ["rows", "channels_last"])
+def test_snake_aa_kernel_edges_in_f32(setup, t, c, layout):
+    """f32 at the lengths where both replicate pads reach every output (T = 1, 2, 5,
+    13), at a warp segment's edges (512) and at odd channel counts, from either layout:
+    within 2e-6 of the output's scale (f32 summation order, the library sine)."""
+    x, consts = _snake_inputs(3, t, c, torch.float32, t * 10 + c, layout)
+    ours = snake_op.snake_aa(x, *consts)
+    plain = snake_op.snake_aa_plain(x, *consts)
+    torch.cuda.synchronize()
+    assert ours.shape == x.shape and ours.dtype == torch.float32
+    assert float((ours - plain).abs().max()) <= 2e-6 * max(1.0, float(plain.abs().max()))
+
+
+@pytest.mark.gpu
+def test_snake_aa_raises_on_what_the_kernel_does_not_take(setup):
+    x, (alpha, inv_beta) = _snake_inputs(1, 64, 8, torch.float16, 0)
+    with pytest.raises(ValueError):
+        snake_op.snake_aa(x, alpha, inv_beta)
+    x = x.float()
+    with pytest.raises(ValueError):
+        snake_op.snake_aa(x, alpha[:4], inv_beta[:4])
+    with pytest.raises(ValueError):
+        snake_op.snake_aa(x, alpha.double(), inv_beta)
+
+
+@pytest.mark.gpu
+def test_bigvgan_forward_is_109_launches_eager_and_replayed(setup):
+    """The published stage structure (rates 4,4,2,2,2,2, AMP blocks 3/7/11 x 1,3,5) at
+    128 channels, bf16: an eager forward launches the kernel 109 times, and so does a
+    replayed pass's vocoder graph (counted by `graphs.run`); the replayed batch equals
+    the eager engine's sample for sample."""
+    from gonova_tts_tpu_torch.models import bigvgan
+
+    graphed, eager = _graph_engines(BIGVGAN_NARROW, {})
+    assert bigvgan.activations(graphed.mcfg) == 109
+    count = lambda: ops.launch_counts().get("snake_aa", 0)  # noqa: E731
+    mel = torch.randn((2, 40, graphed.mcfg.n_mels), device="cuda")
+    before = count()
+    with torch.inference_mode():
+        wav = bigvgan.forward(graphed.params.vocoder, mel, graphed.mcfg, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert count() - before == 109 and wav.shape == (2, 40 * 256)
+    before = count()
+    got = graphed.synthesize_batch(GRAPH_TEXTS)
+    assert count() - before == 109
+    assert graphed.get_stats()["graph_passes"] == 1
+    before = count()
+    want = eager.synthesize_batch(GRAPH_TEXTS)
+    assert count() - before == 109
+    for g, w in zip(got, want):
+        assert np.array_equal(g, w)

@@ -364,3 +364,32 @@ def test_replays_count_the_hand_kernels_launches_and_captures_do_not():
             with graphs.active(gs):
                 graphs.run("f", body, None, ())
     assert counter.count == start + 6 and gs.replayed == 1
+
+
+def test_a_profiler_that_starts_during_a_replay_fails_no_pass(pair):
+    """A traced window may open while a replay's launch is under way (the profiler is
+    started from another thread): the replay's profiler op is opened only while a
+    profiler records, so its close finds what its open found, and the pass serves."""
+    from torch.profiler import ProfilerActivity, profile
+
+    graphed, eager = pair
+    started = []
+
+    class StartsAProfiler(_Replay):
+        def replay(self):
+            if not started:
+                started.append(profile(activities=[ProfilerActivity.CPU]))
+                started[0].__enter__()
+            super().replay()
+
+    table = graphed._graphs.graphs
+    saved = dict(table)
+    for key, (graph, inputs, out, launches) in saved.items():
+        table[key] = (StartsAProfiler(graph.fn, graph.out), inputs, out, launches)
+    try:
+        got = graphed.synthesize_batch(TEXTS[:1])
+    finally:
+        table.update(saved)
+        if started:
+            started[0].__exit__(None, None, None)
+    assert started and np.array_equal(got[0], eager.synthesize_batch(TEXTS[:1])[0])
