@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --phase parallel   # phase 11 alone (after the build), for a multi-card machine
-    python3 chip_smoke.py --phase snake      # the anti-aliased Snake-beta's cases alone (after the build)
+    python3 chip_smoke.py --phase snake      # the Snake-beta kernel and BigVGAN-v2's convs alone (after the build)
 
 Phases; any failure exits non-zero before the final line:
   1. device: name and power limit (nvidia-smi); no card → exit 3, no result.
@@ -33,7 +33,10 @@ Phases; any failure exits non-zero before the final line:
      and 5 (48 channels, 128 samples a frame), bf16 (and f32 at one shape), against its
      plain version (SNAKE_BF16_STEP); its bound counts 58 operations and, in bf16,
      2 + 2 bytes a sample (`snake_cost`). Its launches are counted on the bigvgan
-     cell's path, in the phase after `service` (below).
+     cell's path, in the phase after `service` (below). With `--phase snake` also
+     every dilated conv of that generator alone, dilated and phase-split
+     (`conv_cases`: device ms, TFLOP/s, the top kernel, the error), and one whole
+     forward with its phase-split convs against all dilated (`bigvgan_phase_error`).
   4. engine: the demo checkpoint (assets/checkpoints/demo_ema_f16.npz, full width,
      30.1 M parameters) in bf16 with both kernel switches on — batch one-graph and
      two-stage, streaming, a 128-token sentence whose decoder takes the plain
@@ -58,7 +61,8 @@ Phases; any failure exits non-zero before the final line:
      TTSService (bf16, CUDA graphs captured at warm-up) over the demo checkpoint's
      acoustic model and speaker encoder, a 100-band mel head and the published
      generator from seed 0; counts from zero just before eight synthesize_full calls
-     and read after: every pass replayed, 109 `snake_aa` launches a pass.
+     and read after: every pass replayed, 109 `snake_aa` launches and the rule's
+     phase-split convs (`conv_phased`) a pass.
   7. parity: parity_gpu.py's bf16 gate (parity.py's workload and limits: mel MSE <
      1e-2, MCD < 1.0 dB, MR-STFT < 0.3), f32 plain path vs bf16 with both stack
      kernels, on random weights (seed 0) and on the demo checkpoint; and the engine's
@@ -193,6 +197,7 @@ from __future__ import annotations
 import asyncio
 import base64
 import json
+import math
 import os
 import subprocess
 import sys
@@ -556,14 +561,117 @@ BIGVGAN_V2 = dict(vocoder_family="bigvgan", n_mels=100, speaker_n_mels=80, upsam
                   resblock_kernels=[3, 7, 11], resblock_dilations=[[1, 3, 5]] * 3)
 
 
+def conv_cases(torch, dev):
+    """Every dilated conv of the published BigVGAN-v2 generator alone (C of each stage,
+    k 3/7/11, d 3/5), bf16 at B=16 and 448 frames, and those of stages 0-2 again at
+    B=4 and 256 frames; x lying as [B, C, T] as the activation leaves it, f32 weights
+    cast per call as in a forward: run dilated (`layers.conv1d`) and phase-split
+    (`layers.conv1d_phased`). Each path: the call's device ms from a replayed graph
+    and its TFLOP/s (2 B C² k T operations), the kernel with the most device time in
+    one profiled call (its name and ms), and its error against the f32 sum of the
+    same bf16 operands. The phase path against the dilated conv: both round the
+    conv's f32 sum and then its sum with the bias to bf16, so they may differ by a
+    bf16 step (2^-7) of each, 2^-7 (2 |dilated| + |b|), plus the f32 noise of values
+    near 0 (1e-4 of the largest). And whether the model's rule
+    (`bigvgan.phase_split`) takes the phase path there."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as tprofile
+
+    from gonova_tts_tpu_torch.config import ModelConfig
+    from gonova_tts_tpu_torch.models import bigvgan, layers
+    from gonova_tts_tpu_torch.ops.gemm_tc_sweep import graph_ms
+    from gonova_tts_tpu_torch.utils.prof import device_events
+
+    def top_kernel(fn):
+        fn()
+        torch.cuda.synchronize()
+        with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        rows = device_events(prof)
+        return (rows[0].key[:90], rows[0].self_device_time_total / 1e3) if rows else ("not measured", None)
+
+    cfg = ModelConfig(**BIGVGAN_V2)
+    per = [math.prod(cfg.upsample_rates[: i + 1]) for i in range(len(cfg.upsample_rates))]
+    cases = []
+    for b, frames, stage in [(16, 448, i) for i in range(len(per))] + [(4, 256, i) for i in range(3)]:
+        c, t = cfg.upsample_initial_channel // 2 ** (stage + 1), frames * per[stage]
+        g = torch.Generator(device=dev).manual_seed(stage)
+        x = torch.randn((b, c, t), generator=g, device=dev).to(torch.bfloat16).transpose(1, 2)
+        for k in cfg.resblock_kernels:
+            p = {"w": torch.randn((k, c, c), generator=g, device=dev) * 0.01,
+                 "b": torch.randn(c, generator=g, device=dev) * 0.1}
+            p32 = {"w": p["w"].bfloat16().float(), "b": p["b"].bfloat16().float()}
+            flops = 2 * b * c * c * k * t
+            for d in sorted({d for rd in cfg.resblock_dilations for d in rd if d > 1}):
+                case = {"stage": stage, "C": c, "k": k, "d": d, "B": b, "T": t, "gflop": flops / 1e9,
+                        "rule": bigvgan.phase_split(c, k, d)}
+                paths = {"dilated": lambda: layers.conv1d(p, x, dilation=d, dtype=torch.bfloat16),
+                         "phased": lambda: layers.conv1d_phased(p, x, d, torch.bfloat16)}
+                for name, fn in paths.items():
+                    ms = graph_ms(fn, 5)
+                    kernel, kernel_ms = top_kernel(fn)
+                    case[name] = {"device_ms": ms, "tflops": flops / ms / 1e9, "kernel": kernel, "kernel_ms": kernel_ms}
+                ref, out = paths["dilated"](), paths["phased"]()
+                with torch.backends.cudnn.flags(allow_tf32=False):
+                    exact = layers.conv1d(p32, x.float(), dilation=d)
+                torch.cuda.synchronize()
+                err, ref = (out.float() - ref.float()).abs(), ref.float()
+                for name, y in (("dilated", ref), ("phased", out.float())):
+                    case[name]["max_err_vs_f32"] = float((y - exact).abs().max())
+                rel, atol = SNAKE_BF16_STEP
+                tol = rel * (2 * ref.abs() + p["b"].bfloat16().float().abs()) + atol * float(ref.abs().max())
+                case.update(max_abs_err=float(err.max()), ref_max=float(ref.abs().max()),
+                            ok=out.shape == ref.shape and out.transpose(1, 2).is_contiguous()
+                            and bool((err <= tol).all()),
+                            speedup=case["dilated"]["device_ms"] / case["phased"]["device_ms"])
+                cases.append(case)
+                del ref, out, err, exact, tol
+                torch.cuda.empty_cache()
+        del x
+    return cases
+
+
+def bigvgan_phase_error(torch, dev) -> dict:
+    """One bf16 forward of the published generator (seed 0) at B=16 and 448 frames,
+    its rule as it is against every dilated conv run dilated: the waveforms within
+    the bound `tests/test_torch_bigvgan.py::test_generator_in_bf16_stays_within_its_bound`
+    holds bf16 to (3% of the peak), and the phase-split convs counted."""
+    from gonova_tts_tpu_torch import ops
+    from gonova_tts_tpu_torch.config import ModelConfig
+    from gonova_tts_tpu_torch.models import bigvgan
+
+    cfg = ModelConfig(**BIGVGAN_V2)
+    gen = bigvgan.init(torch.Generator().manual_seed(0), cfg).to(dev)
+    mel = torch.randn((16, 448, 100), generator=torch.Generator(device=dev).manual_seed(1), device=dev) * 2.0
+    before = ops.launch_counts().get("conv_phased", 0)
+    with torch.no_grad():
+        got = bigvgan.forward(gen, mel, cfg, torch.bfloat16)
+        phased = ops.launch_counts().get("conv_phased", 0) - before
+        rule = bigvgan.phase_split
+        bigvgan.phase_split = lambda c, k, d: False
+        try:
+            want = bigvgan.forward(gen, mel, cfg, torch.bfloat16)
+        finally:
+            bigvgan.phase_split = rule
+    torch.cuda.synchronize()
+    err, peak = float((got - want).abs().max()), float(want.abs().max())
+    del gen
+    torch.cuda.empty_cache()
+    return {"case": "generator B=16 T=448 frames bf16, the rule vs all dilated", "max_abs_err": err, "peak": peak,
+            "tolerance": f"0.03 * {peak}", "phased_convs": phased, "rule_convs": len(bigvgan.phased_convs(cfg)),
+            "ok": err <= 0.03 * peak and phased == len(bigvgan.phased_convs(cfg))}
+
+
 def run_bigvgan_service(torch, np, report):
     """BigVGAN-v2 on the path the bigvgan-narrate cell serves: a TTSService (bf16,
     the acoustic kernels, the engine's default dispatch and its CUDA graphs captured at
     warm-up) over the demo checkpoint's acoustic model and speaker encoder, with a
     100-band mel head and the published generator from seed 0. Launch counts and the
     engine's pass counters from zero just before eight synthesize_full calls (the REST
-    method), read just after: every pass replayed, and 109 `snake_aa` launches for
-    each pass's one vocoder forward."""
+    method), read just after: every pass replayed, and 109 `snake_aa` launches and
+    `len(bigvgan.phased_convs(cfg))` phase-split convs for each pass's one vocoder
+    forward."""
     from gonova_tts_tpu_torch import ops
     from gonova_tts_tpu_torch.config import Config, EngineConfig, ModelConfig
     from gonova_tts_tpu_torch.models import bigvgan
@@ -616,6 +724,7 @@ def run_bigvgan_service(torch, np, report):
         "bigvgan_audio_finite_nonempty": all(a.size > 0 and np.isfinite(a).all() for a in audio),
         "bigvgan_every_pass_replayed": forwards > 0 and passes["eager_passes"] == 0,
         "bigvgan_snake_aa_109_a_forward": launches.get("snake_aa", 0) == 109 * forwards,
+        "bigvgan_conv_phased_a_forward": launches.get("conv_phased", 0) == len(bigvgan.phased_convs(mcfg)) * forwards,
     }
     out["checks"] = checks
     report["bigvgan"] = out
@@ -2535,12 +2644,19 @@ def main() -> None:
         sn_cases = snake_cases(torch, dev)
         for c in sn_cases:
             print("kernel case: " + json.dumps(c), flush=True)
+        cv_cases = conv_cases(torch, dev)
+        for c in cv_cases:
+            print("conv case: " + json.dumps(c), flush=True)
+        phase_error = bigvgan_phase_error(torch, dev)
+        print("conv phase error: " + json.dumps(phase_error), flush=True)
         report = {}
         _, bigvgan_checks = run_bigvgan_service(torch, np, report)
         print("bigvgan: " + json.dumps(report["bigvgan"]), flush=True)
         snake = snake_entry(sn_cases, report["bigvgan"])
         print(json.dumps({"kernels": [snake]}), flush=True)
         bad = [f"{c['case']} {c['dtype']}" for c in sn_cases if not c["ok"]]
+        bad += [f"conv B={c['B']} C={c['C']} k={c['k']} d={c['d']}" for c in cv_cases if not c["ok"]]
+        bad += [phase_error["case"]] if not phase_error["ok"] else []
         bad += [k for k, v in bigvgan_checks.items() if not v]
         bad += ["snake_aa never launched on its path"] if snake["launches"] <= 0 else []
         if bad:

@@ -14,9 +14,13 @@ package has no counterpart. Activations are [B, T, C]:
 
 `act` is the anti-aliased Snake-beta (`ops/snake_aa.py`: the CUDA kernel on a card,
 its plain version on the CPU), with per-channel log-scale `alpha` and `beta`. Every
-conv is `layers.conv1d` / `layers.conv1d_transpose` (cuDNN on the card); weight norm
-is folded (a plain `w`). The transposed convs' taps are stored as `layers` stores them,
-a correlation kernel [k, C_in, C_out]: PyTorch's `ConvTranspose1d` weight is their
+conv is `layers.conv1d` / `layers.conv1d_transpose` (cuDNN on the card), but for the
+dilated AMP convs that `phase_split` picks (768, 384 and 192 channels with
+(k - 1)·d >= 30, nine a forward at the published widths): they run as
+`layers.conv1d_phased`, one undilated conv over the row's d phases, which cuDNN runs
+on the tensor cores and not in its CUDA-core implicit GEMM. Weight norm is folded (a
+plain `w`). The transposed convs' taps are stored as `layers` stores them, a
+correlation kernel [k, C_in, C_out]: PyTorch's `ConvTranspose1d` weight is their
 reverse. Between two convs the activations lie as [B, C, T] (what `conv1d` returns),
 which the kernel reads and writes without a copy.
 
@@ -110,9 +114,28 @@ def _act(p: Mapping, x: torch.Tensor) -> torch.Tensor:
     return snake_aa.snake_aa(x, alpha, inv_beta)
 
 
+def phase_split(channels: int, kernel: int, dilation: int) -> bool:
+    """Whether an AMP block runs its dilated conv as `layers.conv1d_phased`: where
+    cuDNN, given the dilated conv, runs it as its CUDA-core implicit GEMM, and the
+    undilated conv over the d phases on the tensor cores pays for the two copies
+    (the per-conv table in PERF.md §6: B=16, 448 frames, bf16, H100)."""
+    return channels >= 192 and (kernel - 1) * dilation >= 30
+
+
+def phased_convs(cfg: ModelConfig) -> list:
+    """(C, k, d) of each conv that a forward runs through the phase split."""
+    chans = [cfg.upsample_initial_channel // 2 ** (i + 1) for i in range(len(cfg.upsample_rates))]
+    return [(c, k, d) for c in chans for k, rd in zip(cfg.resblock_kernels, cfg.resblock_dilations) for d in rd
+            if phase_split(c, k, d)]
+
+
 def _amp_block(p: Mapping, acts: Mapping, x: torch.Tensor, dilations: Sequence[int], dtype) -> torch.Tensor:
     for c1, c2, a1, a2, d in zip(p["convs1"], p["convs2"], acts["a1"], acts["a2"], dilations):
-        xt = layers.conv1d(c1, _act(a1, x), dilation=d, dtype=dtype)
+        a = _act(a1, x)
+        if phase_split(x.shape[2], c1["w"].shape[0], d):
+            xt = layers.conv1d_phased(c1, a, d, dtype)
+        else:
+            xt = layers.conv1d(c1, a, dilation=d, dtype=dtype)
         xt = layers.conv1d(c2, _act(a2, xt), dtype=dtype)
         x = xt + x
     return x

@@ -28,9 +28,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .. import ops
 from ..parallel import tp
 
 NEG = -1e9
+_PHASED = ops.counter("conv_phased")
 
 
 class Tree(nn.Module):
@@ -201,6 +203,44 @@ def _conv1d(w: torch.Tensor, x: torch.Tensor, stride: int, dtype, groups: int, d
     else:
         y = F.conv1d(F.pad(xt, (lo, total - lo)), w, stride=stride, groups=groups, dilation=dilation)
     return y.transpose(1, 2)
+
+
+def conv1d_phased(p: Mapping, x: torch.Tensor, dilation: int, dtype=torch.float32) -> torch.Tensor:
+    """`conv1d(p, x, dilation=dilation, dtype=dtype)` for an odd kernel and an
+    unsharded weight, computed as one undilated conv over the row's d = `dilation`
+    interleaved phases: output t = u·d + r is Σ_j w_j · x_pad[(u + j)·d + r], so the
+    same k taps, undilated over phase r of the padded row, give the outputs of phase
+    r. The same products and sums, in the shape cuDNN runs on the tensor cores
+    where, given some wide dilated convs, it picks a CUDA-core implicit GEMM.
+
+    The padding is `_conv1d`'s SAME rule at stride 1, (k - 1)·d // 2 on the left,
+    which for an odd k is a = (k - 1) / 2 whole phase rows. x is read once into the
+    phases [B·d, C, a + ceil(T / d) + a], only the pads zeroed, and the conv's result
+    written once, bias added, as [B, C_out, T]: the layout `conv1d` returns. Each
+    call adds one to `ops.counter("conv_phased")` (a cuDNN conv, no hand kernel)."""
+    w = p["w"]
+    k, c_out, d = w.shape[0], w.shape[2], dilation
+    if k % 2 == 0 or tp.split_dim(w) is not None:
+        raise ValueError(f"the phase split takes an odd kernel of an unsharded weight (k={k})")
+    xt = x.to(dtype).transpose(1, 2)  # [B, C, T]
+    b, c, t = xt.shape
+    a = (k - 1) // 2
+    q, rem = divmod(t, d)  # whole phase rows of x, and the samples of its last, partial one
+    v = q + (rem > 0)  # outputs a phase
+    rows = xt.new_empty((b, d, c, v + 2 * a))
+    rows[..., :a].zero_()
+    rows[..., a + q:].zero_()
+    rows[..., a : a + q] = xt[..., : q * d].unflatten(2, (q, d)).permute(0, 3, 1, 2)
+    if rem:
+        rows[:, :rem, :, a + q] = xt[..., q * d :].transpose(1, 2)
+    y = F.conv1d(rows.view(b * d, c, -1), w.to(dtype).permute(2, 1, 0)).view(b, d, c_out, v)
+    bias = p["b"].to(dtype)
+    out = y.new_empty((b, c_out, t))
+    torch.add(y[..., :q].permute(0, 2, 3, 1), bias[:, None, None], out=out[..., : q * d].view(b, c_out, q, d))
+    if rem:
+        torch.add(y[:, :rem, :, q].transpose(1, 2), bias[:, None], out=out[..., q * d :])
+    _PHASED.count += 1
+    return out.transpose(1, 2)
 
 
 def conv1d_transpose(p: Mapping, x: torch.Tensor, stride: int, dtype=torch.float32) -> torch.Tensor:

@@ -15,7 +15,9 @@ planner and plain version: a part of those two kernels, not a fifth.
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches the kernel (built on first use by `_build.py`) or raises. Every launch
 adds one to the wrapper's `LaunchCounter`, which is how a run shows that the
-serving path went through the kernels.
+serving path went through the kernels. One counter is no hand kernel's:
+`conv_phased` counts `models/layers.conv1d_phased`'s calls, a cuDNN conv over the
+phases of a dilated conv's row.
 """
 
 from __future__ import annotations

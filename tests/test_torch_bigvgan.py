@@ -160,6 +160,35 @@ def test_generator_equals_the_reference_in_f32(tiny, t):
     assert float((got - want).abs().max()) <= 1e-5
 
 
+@pytest.mark.parametrize("t", [1, 2, 5, 13, 40])
+def test_generator_with_every_dilated_conv_phase_split_equals_the_reference_in_f32(tiny, t, monkeypatch):
+    """`test_generator_equals_the_reference_in_f32` with the phase split forced on for
+    every dilated conv (2 stages x 2 blocks x dilation 3), each counted once."""
+    from gonova_tts_tpu_torch import ops
+
+    cfg, m, reference = tiny
+    monkeypatch.setattr(bigvgan, "phase_split", lambda c, k, d: d > 1)
+    mel = torch.randn((2, t, 20), generator=torch.Generator().manual_seed(t)) * 2.0
+    before = ops.launch_counts()["conv_phased"]
+    got, want = bigvgan.forward(m, mel, cfg), reference(mel)
+    dilated = len(cfg.upsample_rates) * sum(d > 1 for rd in cfg.resblock_dilations for d in rd)
+    assert ops.launch_counts()["conv_phased"] - before == dilated == len(bigvgan.phased_convs(cfg)) == 4
+    assert got.dtype == torch.float32 and got.shape == want.shape == (2, 4 * t)
+    assert float((got - want).abs().max()) <= 1e-5
+
+
+def test_the_phase_split_engages_the_tables_convs_at_the_published_widths():
+    """The rule picks, of every (C, k, d) the published generator runs, exactly the
+    convs that the per-conv table in PERF.md §6 shows cuDNN running as its CUDA-core
+    implicit GEMM when dilated: 768, 384 and 192 channels with (k - 1) d >= 30."""
+    cfg = ModelConfig(**PUBLISHED)
+    grid = {(1536 // 2 ** (i + 1), k, d) for i in range(6) for k in (3, 7, 11) for d in (1, 3, 5)}
+    table = {(c, k, d) for c in (768, 384, 192) for k, d in ((7, 5), (11, 3), (11, 5))}
+    assert {s for s in grid if bigvgan.phase_split(*s)} == table
+    assert sorted(bigvgan.phased_convs(cfg)) == sorted(table) and len(bigvgan.phased_convs(cfg)) == 9
+    assert not bigvgan.phased_convs(ModelConfig(**TINY))
+
+
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_generator_in_bf16_stays_within_its_bound(seed):
     """bf16 rounds every conv's operands and output and each activation's output

@@ -118,3 +118,24 @@ def test_transformer_stack_masked(rng):
         ref = jl.transformer_stack(p, jnp.asarray(x), h, jnp.asarray(mask), attention_window=window)
         ours = tl.transformer_stack(to_torch(p), torch.as_tensor(x), h, torch.as_tensor(mask), attention_window=window)
         close(ours, ref, atol=5e-5)
+
+
+@pytest.mark.parametrize("b", [1, 3])
+@pytest.mark.parametrize("t", [1, 2, 5, 13, 40])
+@pytest.mark.parametrize("d", [1, 3, 5])
+@pytest.mark.parametrize("k", [3, 7, 11])
+def test_phase_split_conv_equals_the_dilated_conv(k, d, t, b):
+    """`conv1d_phased` is `conv1d(..., dilation=d)` in f32 (the same products, summed
+    per phase), bias included, for T odd, even and shorter than the dilated kernel;
+    x lies as [B, C, T] (what the AMP block's activation returns) and so does the
+    result, and each call counts one `conv_phased`."""
+    from gonova_tts_tpu_torch import ops
+
+    g = torch.Generator().manual_seed(1000 * k + 100 * d + 10 * t + b)
+    p = {"w": torch.randn((k, 5, 6), generator=g), "b": torch.randn(6, generator=g)}
+    x = torch.randn((b, 5, t), generator=g).transpose(1, 2)
+    before = ops.launch_counts()["conv_phased"]
+    got = tl.conv1d_phased(p, x, d)
+    assert ops.launch_counts()["conv_phased"] == before + 1
+    assert got.shape == (b, t, 6) and got.transpose(1, 2).is_contiguous()
+    torch.testing.assert_close(got, tl.conv1d(p, x, dilation=d), rtol=1e-5, atol=2e-5)
