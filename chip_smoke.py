@@ -38,10 +38,12 @@ Phases; any failure exits non-zero before the final line:
      (`conv_cases`: device ms, TFLOP/s, the top kernel, the error), and one whole
      forward with its phase-split convs against all dilated (`bigvgan_phase_error`).
   4. engine: the demo checkpoint (assets/checkpoints/demo_ema_f16.npz, full width,
-     30.1 M parameters) in bf16 with both kernel switches on — batch one-graph and
-     two-stage, streaming, a 128-token sentence whose decoder takes the plain
+     30.1 M parameters) in bf16 with both kernel switches on — batches through the
+     engine, streaming, a 128-token sentence whose decoder takes the plain
      local-attention route — with launch counts reset just before and read just
-     after; then agreement checks and audio-seconds per second.
+     after; then agreement checks against the one-shot pipeline
+     (`parity_gpu.one_shot`, run outside the count window) and audio-seconds per
+     second.
   5. voice: the cloning path through the service facade — StreamingSynthesizer,
      VoiceManager.register_voice (assets/default_voice.wav), embed_voice_file,
      VoiceEmbeddingCache, 48 kHz and 44.1 kHz references through
@@ -66,7 +68,7 @@ Phases; any failure exits non-zero before the final line:
   7. parity: parity_gpu.py's bf16 gate (parity.py's workload and limits: mel MSE <
      1e-2, MCD < 1.0 dB, MR-STFT < 0.3), f32 plain path vs bf16 with both stack
      kernels, on random weights (seed 0) and on the demo checkpoint; and the engine's
-     bf16 two-stage audio vs its bf16 one-graph audio, graded by the same metrics.
+     bf16 two-stage audio vs the bf16 one-shot pipeline's, graded by the same metrics.
      Launch counts set to 0 just before each line's run and read just after: each
      line must have launched both stacks. The phase's wall time.
      A gate that fails fails the run.
@@ -87,13 +89,14 @@ Phases; any failure exits non-zero before the final line:
   9. hifigan: NovaGAN at full width (`ModelConfig(vocoder_family="hifigan")`: the demo
      checkpoint's acoustic and speaker subtrees with a HiFi-GAN generator seeded from
      0). f32: the generator at B=1 T=64 on the card vs the CPU, and folded vs plain on
-     the card; TTSEngine with the kernel switches on, two-stage vs one-graph within one
-     int16 step. bf16 (launch counts from 0 just before, read just after): batches
-     1/4/16 two-stage and one-graph, a stream, a cloned voice (assets/default_voice.wav):
-     `transformer_stack` must launch, `vocos_stack` must not. Then audio-s/s per batch
-     and mode, the batch-4 profile, the generator alone at B=4 T=320 in both layouts
-     and dtypes against its FLOP bound (`generator_work`), and parity_gpu's gate
-     metrics for bf16 vs f32 on this config (readings: the vocoder is random).
+     the card; TTSEngine with the kernel switches on, two-stage vs the one-shot
+     pipeline within one int16 step. bf16 (launch counts from 0 just before, read just
+     after): batches 1/4/16 through the engine and the one-shot pipeline, a stream, a
+     cloned voice (assets/default_voice.wav): `transformer_stack` must launch,
+     `vocos_stack` must not. Then the engine's audio-s/s per batch, the batch-4
+     profile, the generator alone at B=4 T=320 in both layouts and dtypes against its
+     FLOP bound (`generator_work`), and parity_gpu's gate metrics for bf16 vs f32 on
+     this config (readings: the vocoder is random).
  10. gan: (a) three d/g pairs of make_gan_steps at a small config (disc_width 0.25,
      the crop firing) on the card vs the CPU: losses within GAN_CARD_VS_CPU_RTOL, no
      kernel launched; (b) `train(gan=True)` on the demo corpus at full width with the
@@ -107,9 +110,9 @@ Phases; any failure exits non-zero before the final line:
      on and `engine.data_parallel = DP_REPLICAS`, on distinct cards where there are
      enough, else every replica on cuda:0 (through `multi.local_devices`; the line
      says how many devices are distinct), against a one-replica engine in this
-     process: batch DP_BATCH one-graph and two-stage in f32 (max |error| within
-     DP_F32_BOUND) and in bf16 (parity.py's three limits), then one stream and one
-     `embed_voice_file`; launch counts from 0 just before the bf16 run and read just
+     process and against the one-shot pipeline on one replica: batch DP_BATCH in f32
+     (max |error| within DP_F32_BOUND) and in bf16 (parity.py's three limits), then
+     one stream and one `embed_voice_file`; launch counts from 0 just before the bf16 run and read just
      after, and each stack launch attributed to the replica whose weights it got:
      both stacks on every replica; batch latencies of both engines. (b) sharded
      training: a 1x1 mesh (NCCL, this process) runs SHARDED_STEPS steps of
@@ -178,7 +181,7 @@ Bounds (max |error| unless named):
     a residual epilogue (the rounded term may cancel in the sum), plus GEMM_ATOL;
   kernels bf16: KERNEL_BF16_BOUND (a one-ulp bf16 flip at a rounding point, ~0.4%,
     carried through the later layers);
-  two-stage vs one-graph, streamed vs one-shot: see ENGINE_BOUNDS;
+  two-stage vs the one-shot pipeline, streamed vs one-shot: see ENGINE_BOUNDS;
   bf16 kernel path vs f32 plain path: relative L2 error of the audio at the same
     durations, BF16_VS_F32_REL_L2;
   log-mel kernel: |error| <= MEL_ATOL + MEL_RTOL * |plain| (f32-grade products, here
@@ -212,10 +215,10 @@ GEMM_RTOL, GEMM_ATOL = 2.0 ** -7, 1e-2
 # shapes (the mel and STFT-head products, the embed conv), and a bf16 rounding flip
 # there moves the audio by tens of LSB; in f32 the same dispatch stays within 2 LSB.
 ENGINE_BOUNDS = {
-    "two_stage_vs_one_graph": 0.08,
-    "two_stage_vs_one_graph_plain_local": 0.1,
+    "two_stage_vs_one_shot": 0.08,
+    "two_stage_vs_one_shot_plain_local": 0.1,
     "stream_vs_one_shot": 0.03,
-    "f32_two_stage_vs_one_graph": 2.01 / 32767,
+    "f32_two_stage_vs_one_shot": 2.01 / 32767,
 }
 BF16_VS_F32_REL_L2 = 0.1
 MEL_ATOL, MEL_RTOL = 2e-4, 1e-4
@@ -228,8 +231,8 @@ VOICE_BOUNDS = {
     "embedding_kernel_mel_vs_plain_mel_bf16": 2e-2,
     "embedding_unit_norm": 1e-3,
     "resample_card_vs_cpu": 1e-4,  # f32 polyphase FIR, cuDNN vs CPU summation order
-    # The batcher may dispatch two-stage; the stream is one-graph acoustic + windows.
-    "cloned_batch_vs_stream": ENGINE_BOUNDS["two_stage_vs_one_graph"],
+    # The batcher's passes are two-stage; the stream is one acoustic pass + windows.
+    "cloned_batch_vs_stream": ENGINE_BOUNDS["two_stage_vs_one_shot"],
 }
 VOICE_WAV = os.path.join("assets", "default_voice.wav")
 # The same sentence, voice and batch shape twice through the service: the same kernels
@@ -261,7 +264,7 @@ SENTENCES = [  # 25, 42, 45 and 60 tokens: one batch in the 64-token bucket
     "We paid $42.50 for 17 widgets.",
 ]
 STREAM_TEXT = "Streaming starts before the sentence ends. A second sentence follows the first one."
-LONG_SENTENCE = (  # 97 tokens: the 128-token bucket, 1024 one-graph frames
+LONG_SENTENCE = (  # 97 tokens: the 128-token bucket, 1024 one-shot frames
     "This longer sentence keeps going with many more words, so that its phoneme count "
     "lands in the next bucket up."
 )
@@ -864,11 +867,6 @@ def engine_config(dtype: str, kernels: bool):
     return cfg
 
 
-def pinned(engine, mode, texts):
-    engine.ecfg.two_stage_batch = mode
-    return engine.synthesize_batch(texts)
-
-
 def max_diff(a_list, b_list) -> float:
     worst = 0.0
     for a, b in zip(a_list, b_list):
@@ -882,25 +880,26 @@ def run_engine(torch, np, report):
     from gonova_tts_tpu_torch import ops
     from gonova_tts_tpu_torch.engine import TTSEngine
     from gonova_tts_tpu_torch.models import tts
+    from parity_gpu import one_shot
 
     t0 = time.perf_counter()
     eng = TTSEngine(engine_config("bfloat16", kernels=True))
     eng.load(warmup=True)
     report["engine_load_s"] = time.perf_counter() - t0
-    report["two_stage_auto_resolved"] = eng.two_stage_enabled  # before any pinning
     if not (eng.mcfg.acoustic_pallas and eng.mcfg.vocos_pallas):
         fail("kernel switches did not reach the model config")
 
+    # The one-shot references first, outside the window.
+    one = one_shot(eng, SENTENCES)
+    long_one = one_shot(eng, [LONG_SENTENCE])
     # The main path: launch counts from zero, read right after.
     ops.reset_launch_counts()
-    one = pinned(eng, False, SENTENCES)
-    two = pinned(eng, True, SENTENCES)
+    two = eng.synthesize_batch(SENTENCES)
     chunks = list(eng.synthesize_stream(STREAM_TEXT))
-    long_one = pinned(eng, False, [LONG_SENTENCE])
-    long_two = pinned(eng, True, [LONG_SENTENCE])
+    long_two = eng.synthesize_batch([LONG_SENTENCE])
     torch.cuda.synchronize()
     launches = ops.launch_counts()
-    n_requests = 2 * len(SENTENCES) + 1 + 2
+    n_requests = len(SENTENCES) + 1 + 1
     report["main_path"] = {"requests": n_requests, "launches": launches}
 
     from gonova_tts_tpu_torch.text import batch_to_bucket, pick_bucket, segment_text, text_to_ids
@@ -908,15 +907,15 @@ def run_engine(torch, np, report):
     long_bucket = pick_bucket(len(text_to_ids(LONG_SENTENCE)), eng.ecfg.token_buckets)
     streamed = np.concatenate(chunks)
     # One-shot reference: each sentence alone, at the shapes the stream used.
-    whole = np.concatenate([pinned(eng, False, [s])[0] for s in segment_text(STREAM_TEXT)])
+    whole = np.concatenate([one_shot(eng, [s])[0] for s in segment_text(STREAM_TEXT)])
     checks = {
         "finite_nonempty": all(np.isfinite(w).all() and w.size > 0 for w in one + two + chunks + long_one + long_two),
         "launches_positive": all(launches.get(k, 0) > 0 for k in ("transformer_stack", "vocos_stack")),
         "long_sentence_bucket_128": long_bucket == 128,
     }
     diffs = {
-        "two_stage_vs_one_graph": max_diff(one, two),
-        "two_stage_vs_one_graph_plain_local": max_diff(long_one, long_two),
+        "two_stage_vs_one_shot": max_diff(one, two),
+        "two_stage_vs_one_shot_plain_local": max_diff(long_one, long_two),
         "stream_vs_one_shot": max_diff([streamed], [whole]),
     }
     for k, v in diffs.items():
@@ -947,10 +946,10 @@ def run_engine(torch, np, report):
     same_durations = int((e_bf["durations"] == e["durations"]).all(dim=1).sum())
     checks["bf16_vs_f32"] = rel <= BF16_VS_F32_REL_L2
 
-    # The dispatch rule itself, in f32 through the kernels: two-stage == one-graph.
+    # The dispatch rule itself, in f32 through the kernels: two-stage == one-shot.
     ref.mcfg = ref.mcfg.model_copy(update={"acoustic_pallas": True, "vocos_pallas": True})
-    k = "f32_two_stage_vs_one_graph"
-    diffs[k] = max_diff(pinned(ref, False, SENTENCES), pinned(ref, True, SENTENCES))
+    k = "f32_two_stage_vs_one_shot"
+    diffs[k] = max_diff(one_shot(ref, SENTENCES), ref.synthesize_batch(SENTENCES))
     checks[k] = diffs[k] <= ENGINE_BOUNDS[k]
     report["agreement"] = {
         **diffs, "bounds": ENGINE_BOUNDS,
@@ -961,15 +960,15 @@ def run_engine(torch, np, report):
     }
     report["checks"] = checks
 
-    # Serving speed, two-stage, warm.
+    # Serving speed, warm.
     speed = {}
     for b in (1, 4, 16):
         texts = [SENTENCES[i % len(SENTENCES)] for i in range(b)]
-        pinned(eng, True, texts)
+        eng.synthesize_batch(texts)
         torch.cuda.synchronize()
         reps, t0, samples = 5, time.perf_counter(), 0
         for _ in range(reps):
-            samples += sum(w.size for w in pinned(eng, True, texts))
+            samples += sum(w.size for w in eng.synthesize_batch(texts))
         dt = time.perf_counter() - t0
         speed[f"batch{b}"] = {
             "audio_s_per_s": samples / eng.sample_rate / dt, "latency_ms_per_batch": dt / reps * 1e3,
@@ -985,7 +984,7 @@ def run_engine(torch, np, report):
 
 
 def profile(eng, torch, unprofiled_ms: float) -> dict:
-    """Device time by kernel over one warm batch-4 two-stage request. The first
+    """Device time by kernel over one warm batch-4 request. The first
     profiled run pays the tracer's start-up and is discarded; the idle share is
     taken against the request's unprofiled latency."""
     from torch.profiler import ProfilerActivity
@@ -994,11 +993,11 @@ def profile(eng, torch, unprofiled_ms: float) -> dict:
     from gonova_tts_tpu_torch.utils.prof import device_events
 
     for _ in range(2):
-        pinned(eng, True, SENTENCES)
+        eng.synthesize_batch(SENTENCES)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            pinned(eng, True, SENTENCES)
+            eng.synthesize_batch(SENTENCES)
             torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = device_events(prof)
@@ -1336,7 +1335,7 @@ def run_parity(torch, np, report):
     eng = parity_gpu.demo_engine(dev)
     lines.append(counted(lambda: parity_gpu.engine_parity(eng), "demo_ema_f16.npz"))
     launches = {k: sum(line["launches"][k] for line in lines) for k in parity_gpu.STACKS}
-    names = ("parity_random_init", "parity_demo_checkpoint", "parity_two_stage_vs_one_graph")
+    names = ("parity_random_init", "parity_demo_checkpoint", "parity_two_stage_vs_one_shot")
     checks = {}
     for name, line in zip(names, lines):
         checks[name] = line["pass"]
@@ -1555,7 +1554,7 @@ HIFIGAN = {"vocoder_family": "hifigan"}  # ModelConfig() fields: full width, fol
 HIFIGAN_BOUNDS = {
     "vocoder_card_vs_cpu_f32": 1e-4,  # cuDNN vs the CPU's summation order, f32 through 40 convs
     "folded_vs_plain_f32": (2e-5, 1e-5),  # (atol, rtol): the JAX package's pin for its own fold
-    "f32_two_stage_vs_one_graph": 1.01 / 32767,  # the JAX engine's pin: one int16 step
+    "f32_two_stage_vs_one_shot": 1.01 / 32767,  # the JAX engine's pin: one int16 step
 }
 
 
@@ -1599,6 +1598,7 @@ def run_hifigan(torch, np, report, smi, dev="cuda"):
     from gonova_tts_tpu_torch.models import vocoder, vocoder_folded
 
     import parity_gpu
+    from parity_gpu import one_shot
 
     t_phase = time.perf_counter()
     sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)  # dev="cpu": a rehearsal
@@ -1633,13 +1633,14 @@ def run_hifigan(torch, np, report, smi, dev="cuda"):
             eng.load(warmup=True)
             return eng
 
-        # f32 with the kernel switches on: two-stage vs one-graph within one int16 step.
+        # f32 with the kernel switches on: two-stage vs one-shot within one int16 step.
         eng = engine("float32")
+        one = one_shot(eng, SENTENCES)
         ops.reset_launch_counts()
-        one, two = pinned(eng, False, SENTENCES), pinned(eng, True, SENTENCES)
+        two = eng.synthesize_batch(SENTENCES)
         sync()
         f32_launches = ops.launch_counts()
-        k = "f32_two_stage_vs_one_graph"
+        k = "f32_two_stage_vs_one_shot"
         out[k] = max_diff(one, two)
         checks["hifigan_" + k] = out[k] <= HIFIGAN_BOUNDS[k]
         del eng
@@ -1650,8 +1651,7 @@ def run_hifigan(torch, np, report, smi, dev="cuda"):
         ops.reset_launch_counts()
         served = []
         for b in (1, 4, 16):
-            texts = [SENTENCES[i % len(SENTENCES)] for i in range(b)]
-            served += pinned(eng, True, texts) + pinned(eng, False, texts)
+            served += eng.synthesize_batch([SENTENCES[i % len(SENTENCES)] for i in range(b)])
         chunks = list(eng.synthesize_stream(STREAM_TEXT))
         cloned = eng.synthesize_batch([SENTENCES[1]], speakers=[eng.embed_voice_file(VOICE_WAV)])
         sync()
@@ -1668,18 +1668,17 @@ def run_hifigan(torch, np, report, smi, dev="cuda"):
         speed = {}
         for b in (1, 4, 16):
             texts = [SENTENCES[i % len(SENTENCES)] for i in range(b)]
-            for mode in (True, False):
-                pinned(eng, mode, texts)
-                sync()
-                reps, t0, samples = 3, time.perf_counter(), 0
-                for _ in range(reps):
-                    samples += sum(w.size for w in pinned(eng, mode, texts))
-                dt = time.perf_counter() - t0
-                speed[f"batch{b}_{'two_stage' if mode else 'one_graph'}"] = {
-                    "audio_s_per_s": samples / eng.sample_rate / dt, "latency_ms_per_batch": dt / reps * 1e3}
+            eng.synthesize_batch(texts)
+            sync()
+            reps, t0, samples = 3, time.perf_counter(), 0
+            for _ in range(reps):
+                samples += sum(w.size for w in eng.synthesize_batch(texts))
+            dt = time.perf_counter() - t0
+            speed[f"batch{b}"] = {
+                "audio_s_per_s": samples / eng.sample_rate / dt, "latency_ms_per_batch": dt / reps * 1e3}
         out["speed_bf16"] = speed
         if dev == "cuda":
-            out["profile_batch4_two_stage"] = profile(eng, torch, speed["batch4_two_stage"]["latency_ms_per_batch"])
+            out["profile_batch4_two_stage"] = profile(eng, torch, speed["batch4"]["latency_ms_per_batch"])
 
         # The generator alone at B=4, T=320: both layouts, bf16 and f32, against its bound.
         mel = torch.as_tensor(np.random.default_rng(10).normal(-4.0, 2.0, (4, 320, mcfg.n_mels)).astype(np.float32),
@@ -1957,12 +1956,12 @@ def dp_engines(torch, dtype: str, dev: str):
     return engines
 
 
-def timed_batches(torch, eng, texts, mode, reps=3):
-    pinned(eng, mode, texts)
+def timed_batches(torch, eng, texts, reps=3):
+    eng.synthesize_batch(texts)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for _ in range(reps):
-        pinned(eng, mode, texts)
+        eng.synthesize_batch(texts)
     return (time.perf_counter() - t0) / reps * 1e3
 
 
@@ -2054,6 +2053,7 @@ def run_parallel(torch, np, report, smi, dev="cuda"):
     from gonova_tts_tpu_torch.parallel import mesh as pmesh
     from gonova_tts_tpu_torch.train.data import ManifestDataset
     from gonova_tts_tpu_torch.train.synth_corpus import generate_corpus
+    from parity_gpu import one_shot
 
     t_phase = time.perf_counter()
     sync = torch.cuda.synchronize if dev == "cuda" else (lambda: None)  # dev="cpu": a rehearsal
@@ -2069,7 +2069,9 @@ def run_parallel(torch, np, report, smi, dev="cuda"):
     try:
         texts = [SENTENCES[i % len(SENTENCES)] for i in range(DP_BATCH)]
         dp32, one32 = dp_engines(torch, "float32", dev)
-        f32 = {mode: max_diff(pinned(dp32, mode, texts), pinned(one32, mode, texts)) for mode in (False, True)}
+        got32 = dp32.synthesize_batch(texts)
+        f32 = {"one_shot": max_diff(got32, one_shot(one32, texts)),
+               "two_stage": max_diff(got32, one32.synthesize_batch(texts))}
         del dp32, one32
         dp, one = dp_engines(torch, "bfloat16", dev)
     finally:
@@ -2078,7 +2080,7 @@ def run_parallel(torch, np, report, smi, dev="cuda"):
     ops.reset_launch_counts()
 
     def dp_path():
-        got = {mode: pinned(dp, mode, texts) for mode in (False, True)}
+        got = dp.synthesize_batch(texts)
         chunks = list(dp.synthesize_stream(STREAM_TEXT))
         emb = dp.embed_voice_file(VOICE_WAV)
         sync()
@@ -2086,22 +2088,19 @@ def run_parallel(torch, np, report, smi, dev="cuda"):
 
     (got, chunks, emb), per_replica = replica_launches(dp, dp_path)
     dp_launches = ops.launch_counts()
-    want = {mode: pinned(one, mode, texts) for mode in (False, True)}
-    lines = {("two_stage" if mode else "one_graph"): graded(torch, dp, got[mode], want[mode], f"dp{DP_REPLICAS}_vs_one_replica_bf16")
-             for mode in (False, True)}
+    want = {"one_shot": one_shot(one, texts), "two_stage": one.synthesize_batch(texts)}
+    lines = {key: graded(torch, dp, got, rows, f"dp{DP_REPLICAS}_vs_one_replica_bf16") for key, rows in want.items()}
     stream_ref = list(one.synthesize_stream(STREAM_TEXT))
     emb_ref = one.embed_voice_file(VOICE_WAV)
     timing = {}
     if dev == "cuda":
-        for mode in (False, True):
-            key = "two_stage" if mode else "one_graph"
-            timing[key] = {f"{n}_ms_per_batch{DP_BATCH}": timed_batches(torch, e, texts, mode)
-                           for n, e in (("dp", dp), ("one_replica", one))}
+        timing = {f"{n}_ms_per_batch{DP_BATCH}": timed_batches(torch, e, texts)
+                  for n, e in (("dp", dp), ("one_replica", one))}
     out["dp_serving"] = {
         "checkpoint": DEMO, "batch": DP_BATCH, "replica_devices": replicas, "distinct_devices": len(set(replicas)),
         "note": "two replicas on one card measure the mechanism (sharding, per-replica launches), not scaling"
                 if len(set(replicas)) == 1 else "replicas on distinct cards",
-        "f32_max_abs_diff_vs_one_replica": {"one_graph": f32[False], "two_stage": f32[True]}, "f32_bound": DP_F32_BOUND,
+        "f32_max_abs_diff_vs_one_replica": f32, "f32_bound": DP_F32_BOUND,
         "bf16_vs_one_replica": lines, "launches": dp_launches, "launches_per_replica": per_replica,
         "stream_max_abs_diff_vs_one_replica": max_diff([np.concatenate(chunks)], [np.concatenate(stream_ref)]),
         "embed_max_abs_diff_vs_one_replica": float(np.abs(emb - emb_ref).max()), "timing": timing,
@@ -2109,7 +2108,7 @@ def run_parallel(torch, np, report, smi, dev="cuda"):
     checks["dp_f32_within_bound"] = max(f32.values()) <= DP_F32_BOUND
     checks["dp_bf16_parity"] = all(line["pass"] for line in lines.values())
     checks["dp_stacks_launch_on_every_replica"] = all(v > 0 for c in per_replica.values() for v in c.values())
-    checks["dp_finite"] = all(np.isfinite(w).all() and w.size > 0 for m in got.values() for w in m) and all(
+    checks["dp_finite"] = all(np.isfinite(w).all() and w.size > 0 for w in got) and all(
         np.isfinite(c).all() for c in chunks) and bool(np.isfinite(emb).all())
     checks["dp_embed_launches_mel"] = dp_launches.get("mel_spectrogram", 0) > 0
     del dp, one

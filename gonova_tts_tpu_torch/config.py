@@ -16,7 +16,7 @@ the reference honors, server.py:487-488) > config.yaml > defaults.
 from __future__ import annotations
 
 import os
-from typing import List, Literal, Optional, Union
+from typing import List, Literal, Optional
 
 import yaml
 from pydantic import BaseModel, ConfigDict, Field
@@ -262,25 +262,11 @@ class EngineConfig(_SectionModel):
     # Data-parallel serving: number of local devices to drive from this engine
     # (1 = one device; 0 = all local devices). Params replicate, batch shards.
     data_parallel: int = 1
-    # Two-stage batch dispatch: run the token-domain half (encoder + predictors —
-    # acoustic.encode), read back total_frames (one [B]-int32 round trip), then run
-    # length-regulate + decoder + vocoder at the smallest configured frame bucket
-    # covering the batch (+ stream_context_frames for streaming-grade exactness)
-    # instead of the static worst case L*max_frames_per_token. Typical speech fills
-    # ~5/8 of the worst case, so this skips ~35% of decoder AND vocoder work.
-    # Whether it wins depends on the host's device round-trip latency: where the
-    # readback is short the saved work dominates; where it is long the readback
-    # costs more than it saves. Default "auto": the engine measures one [B]-int32
-    # readback at load and enables two-stage iff it is under
-    # two_stage_readback_threshold_ms. Set true/false to force.
-    two_stage_batch: Union[bool, Literal["auto"]] = "auto"
-    # "auto" enables two-stage when the measured readback is below this (ms): the
-    # JAX package's value, not yet decided on the card.
-    two_stage_readback_threshold_ms: float = 1.0
-    # Bounded frame-bucket set for the two-stage decode: the dispatch picks the
-    # smallest entry covering the batch, falling back to the worst case when none
-    # does — so the device shapes are capped at |buckets|+1 per batch bucket. Warmup
-    # runs these (for warmup_shapes' batch sizes) when two_stage_batch is on.
+    # Bounded frame-bucket set for the decode after a pass's frame-count readback:
+    # the dispatch picks the smallest entry covering the batch, falling back to the
+    # worst case (bucket * max_frames_per_token) when none does — so the device shapes
+    # are capped at |buckets|+1 per batch bucket. Warmup always runs these (for
+    # warmup_shapes' batch sizes).
     vocode_frame_buckets: List[int] = Field(
         default_factory=lambda: [128, 192, 256, 320, 384, 448]
     )

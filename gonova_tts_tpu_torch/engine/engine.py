@@ -5,12 +5,11 @@ surface (`load`, `warmup`, `embed_voice`, `embed_voice_file`, `synthesize_batch`
 `synthesize_stream`, `health_check`, `get_stats`) and the same dispatch rules:
 
   * token and batch buckets, so every device pass has one of a few shapes;
-  * one-graph (`tts.synthesize`) or two-stage dispatch (`encode_acoustic`, one
-    [B]-int32 readback of the frame counts, then `decode_vocode` at the smallest
-    configured frame bucket covering `total_frames.max()` and the vocoder's reach
-    past it, at least `stream_context_frames`: `tts.reach_frames`);
-    `two_stage_batch="auto"` picks two-stage when that readback is under the
-    configured threshold;
+  * every pass in two stages: `encode_acoustic`, one [B]-int32 readback of the
+    frame counts, then `decode_vocode` at the smallest configured frame bucket
+    covering `total_frames.max()` and the vocoder's reach past it, at least
+    `stream_context_frames` (`tts.reach_frames`); `tts.synthesize`, the one-shot
+    pipeline, is what these passes reproduce;
   * PCM16 transfer: the device packs `clip(wav * 32767, ±32767)` with a
     truncating int16 cast, the host unpacks `/ 32768` (`utils/native.i16_to_f32`:
     the C audio runtime, or its numpy form);
@@ -34,8 +33,8 @@ without graphs (the CPU, data parallelism) `warmup` runs the warmup shapes once.
 device of `multi.local_devices`; more than exist raises). With two or more, each
 device holds a replica (`engine/multi.py`) and a batch, rounded up to a multiple of
 the device count, is split into contiguous row blocks, one per replica: every
-shard is enqueued before any is read back. In two-stage mode the frame bucket comes
-from the whole batch's frame counts, as the JAX engine's sharded encode sees them.
+shard is enqueued before any is read back. The frame bucket comes from the whole
+batch's frame counts, as the JAX engine's sharded encode sees them.
 Streaming and voice embedding run on replica 0.
 """
 
@@ -110,7 +109,6 @@ class TTSEngine:
             "graphs_captured": 0,
         }
         self._vocode_shapes_seen: set = set()
-        self._auto_two_stage = False
         self._graphs: Optional[graphs.GraphSet] = None
         # (batch, token bucket) → (pinned host buffers, the graphs' static inputs)
         self._staged: dict = {}
@@ -132,8 +130,7 @@ class TTSEngine:
 
     def load(self, warmup: bool = True) -> None:
         """Restore (`model.model_path`: a `.npz`, or a training root whose newest
-        step is taken) or seed-initialize the weights,
-        resolve the two-stage mode, then optionally warm up."""
+        step is taken) or seed-initialize the weights, then optionally warm up."""
         t0 = time.time()
         self.data_parallel = self._resolve_data_parallel()
         if self.mcfg.model_path:
@@ -156,15 +153,6 @@ class TTSEngine:
         self._graphs = graphs.GraphSet(self.device) if on_card else None
         self._staged = {}
         self.stats["graphs_captured"] = 0
-
-        self._auto_two_stage = False
-        if self.ecfg.two_stage_batch == "auto":
-            ms = self._measure_readback_ms()
-            self._auto_two_stage = ms < self.ecfg.two_stage_readback_threshold_ms
-            logger.info(
-                "two_stage auto: readback %.3f ms, threshold %.3f ms, enabled %s",
-                ms, self.ecfg.two_stage_readback_threshold_ms, self._auto_two_stage,
-            )
         self.is_loaded = True
         if warmup:
             self.warmup()
@@ -181,23 +169,8 @@ class TTSEngine:
 
     @property
     def two_stage_enabled(self) -> bool:
-        mode = self.ecfg.two_stage_batch
-        if mode == "auto":
-            return self._auto_two_stage
-        return bool(mode)
-
-    def _measure_readback_ms(self) -> float:
-        """Median wall time (ms) of one [B]-int32 device op plus its synchronized
-        device→host copy: the readback the two-stage dispatch adds per batch."""
-        b = max(self.ecfg.batch_buckets or [16])
-        base = torch.arange(b, dtype=torch.int32, device=self.device)
-        (base + 0).cpu()
-        times = []
-        for i in range(1, 6):
-            t0 = time.perf_counter()
-            (base + i).cpu()
-            times.append(time.perf_counter() - t0)
-        return float(np.median(times) * 1e3)
+        """Every pass is two-stage."""
+        return True
 
     # ------------------------------------------------------------ device stages
 
@@ -252,7 +225,7 @@ class TTSEngine:
         ]
 
     def _frame_buckets(self, bucket: int) -> List[int]:
-        """The frame buckets a two-stage pass at this token bucket can dispatch."""
+        """The frame buckets a pass at this token bucket can dispatch."""
         t_full = bucket * self.mcfg.max_frames_per_token
         return [x for x in self.ecfg.vocode_frame_buckets if x < t_full] + [t_full]
 
@@ -263,9 +236,9 @@ class TTSEngine:
         )
 
     def warmup(self) -> None:
-        """Run each configured (batch, token-bucket) shape once — in two-stage mode
-        encode plus decode_vocode at every frame bucket the shape can dispatch — and
-        the streaming window shape. Under data parallelism the batch is rounded as
+        """Run each configured (batch, token-bucket) shape once — encode plus
+        decode_vocode at every frame bucket the shape can dispatch — and the
+        streaming window shape. Under data parallelism the batch is rounded as
         serving rounds it and every replica runs its shard's shape. With graphs (a
         card, one replica) each shape is captured instead, after `_prime`, and its
         readbacks read nothing yet; the engine captures nothing after warm-up."""
@@ -283,28 +256,22 @@ class TTSEngine:
                     if self._graphs is not None and (batch, bucket) not in self._staged:
                         self._make_staged(arrays)
                     shards = self._shards(*arrays)
-                    if self.two_stage_enabled:
-                        encs = [tts.encode_acoustic(rep, *args, self.mcfg, dtype) for rep, args in shards]
-                        for e in encs:
-                            e["total_frames"].cpu()
-                        self.stats["compiles"] += 1
-                        t_full = bucket * self.mcfg.max_frames_per_token
-                        for fb in self._frame_buckets(bucket):
-                            outs = [
-                                tts.decode_vocode(
-                                    rep, e["enc"], e["spk"], e["durations"], args[1], fb,
-                                    self.mcfg, dtype, local_attention_from=t_full,
-                                )
-                                for (rep, args), e in zip(shards, encs)
-                            ]
-                            for out in outs:
-                                out["total_samples"].cpu()
-                            self._vocode_shapes_seen.add((batch, bucket, fb))
-                            self.stats["compiles"] += 1
-                    else:
-                        outs = [tts.synthesize(rep, *args, self.mcfg, dtype) for rep, args in shards]
+                    encs = [tts.encode_acoustic(rep, *args, self.mcfg, dtype) for rep, args in shards]
+                    for e in encs:
+                        e["total_frames"].cpu()
+                    self.stats["compiles"] += 1
+                    t_full = bucket * self.mcfg.max_frames_per_token
+                    for fb in self._frame_buckets(bucket):
+                        outs = [
+                            tts.decode_vocode(
+                                rep, e["enc"], e["spk"], e["durations"], args[1], fb,
+                                self.mcfg, dtype, local_attention_from=t_full,
+                            )
+                            for (rep, args), e in zip(shards, encs)
+                        ]
                         for out in outs:
                             out["total_samples"].cpu()
+                        self._vocode_shapes_seen.add((batch, bucket, fb))
                         self.stats["compiles"] += 1
                     logger.info("warmup batch %d bucket %d: %.2f s", batch, bucket, time.time() - t0)
             self.stats["graphs_captured"] = len(self._graphs or ())
@@ -325,17 +292,13 @@ class TTSEngine:
         per warmed token bucket and a decode_vocode at the fewest and the most frames
         warmed (the two sides of the kernels' length limits). It builds what a first
         call builds on the host (position tables, packed weights, fold selectors, the
-        libraries' per-stream state), which a capture may not copy to the device.
-        One-graph: a whole pass per token bucket."""
+        libraries' per-stream state), which a capture may not copy to the device."""
         buckets = sorted({bucket for _, bucket in self.ecfg.warmup_shapes})
         ends = {(buckets[0], self._frame_buckets(buckets[0])[0]),
                 (buckets[-1], self._frame_buckets(buckets[-1])[-1])}
         with self._graphs.side_stream():
             for bucket in buckets:
                 args = self._tensors(*self._zeros(1, bucket))
-                if not self.two_stage_enabled:
-                    tts.synthesize(self.params, *args, self.mcfg, dtype)["total_samples"].cpu()
-                    continue
                 e = tts.encode_acoustic(self.params, *args, self.mcfg, dtype)
                 for fb in sorted(fb for b, fb in ends if b == bucket):
                     tts.decode_vocode(
@@ -416,31 +379,13 @@ class TTSEngine:
             id_lists = [text_to_ids(t) for t in texts]
         elif len(id_lists) != b:
             raise ValueError(f"{len(id_lists)} id lists for {b} texts")
-        tokens_np, lengths, bucket = batch_to_bucket(id_lists, self.ecfg.token_buckets)
+        tokens, mask, spk, exagg, lengths, bucket = self._batch_inputs(id_lists, speakers, exaggerations)
+        batch_bucket = tokens.shape[0]
         truncated = sum(len(ids) > bucket for ids in id_lists)
         if truncated:
             with self._stats_lock:
                 self.stats["truncated_sentences"] += truncated
             logger.warning("%d token sequences cut to bucket %d", truncated, bucket)
-        batch_bucket = pick_bucket(b, self.ecfg.batch_buckets)
-        if b > batch_bucket:
-            logger.warning("batch %d exceeds the largest bucket %d", b, batch_bucket)
-            batch_bucket = b
-        if self._dp is not None:
-            batch_bucket = self._dp.round_batch(batch_bucket)
-
-        tokens = np.zeros((batch_bucket, bucket), np.int32)
-        tokens[:b] = tokens_np
-        all_lengths = np.concatenate([lengths, np.zeros(batch_bucket - b, np.int32)])
-        mask = (np.arange(bucket)[None, :] < all_lengths[:, None]).astype(np.float32)
-        spk = np.zeros((batch_bucket, self.mcfg.speaker_dim), np.float32)
-        if speakers is not None:
-            for i, s in enumerate(speakers):
-                if s is not None:
-                    spk[i] = s
-        exagg = np.full((batch_bucket,), 0.5, np.float32)  # the streaming/reference default
-        if exaggerations is not None:
-            exagg[:b] = np.asarray(exaggerations, np.float32)
 
         t_full = int(bucket * self.mcfg.max_frames_per_token)
         span = self.tracer.span
@@ -470,6 +415,34 @@ class TTSEngine:
             self.stats["graph_passes" if graphed else "eager_passes"] += 1
         return results
 
+    def _batch_inputs(self, id_lists, speakers=None, exaggerations=None):
+        """A pass's host inputs: the token ids at their token bucket, the rows padded
+        to the batch bucket (rounded for data parallelism), the mask, the speaker rows
+        (zero where none) and the exaggerations (0.5 on padded rows). Returns
+        (tokens, mask, spk, exagg, lengths, bucket)."""
+        b = len(id_lists)
+        tokens_np, lengths, bucket = batch_to_bucket(id_lists, self.ecfg.token_buckets)
+        batch_bucket = pick_bucket(b, self.ecfg.batch_buckets)
+        if b > batch_bucket:
+            logger.warning("batch %d exceeds the largest bucket %d", b, batch_bucket)
+            batch_bucket = b
+        if self._dp is not None:
+            batch_bucket = self._dp.round_batch(batch_bucket)
+
+        tokens = np.zeros((batch_bucket, bucket), np.int32)
+        tokens[:b] = tokens_np
+        all_lengths = np.concatenate([lengths, np.zeros(batch_bucket - b, np.int32)])
+        mask = (np.arange(bucket)[None, :] < all_lengths[:, None]).astype(np.float32)
+        spk = np.zeros((batch_bucket, self.mcfg.speaker_dim), np.float32)
+        if speakers is not None:
+            for i, s in enumerate(speakers):
+                if s is not None:
+                    spk[i] = s
+        exagg = np.full((batch_bucket,), 0.5, np.float32)  # the streaming/reference default
+        if exaggerations is not None:
+            exagg[:b] = np.asarray(exaggerations, np.float32)
+        return tokens, mask, spk, exagg, lengths, bucket
+
     def _pass(self, tokens, mask, spk, exagg, bucket: int, batch_bucket: int, t_full: int):
         """The device work of one `synthesize_batch` pass, under the device lock:
         the host copies of the audio (PCM16 or f32), the samples per row and the
@@ -478,42 +451,32 @@ class TTSEngine:
         dtype = self.compute_dtype
         span = self.tracer.span
         shards = self._shards(tokens, mask, spk, exagg)
-        if self.two_stage_enabled:
-            with span("engine.encode"):
-                encs = [tts.encode_acoustic(rep, *args, self.mcfg, dtype) for rep, args in shards]
-            # The one [B] readback; the frame bucket covers the whole batch.
-            with span("engine.readback"):
-                total_frames = np.concatenate([e["total_frames"].cpu().numpy() for e in encs])
-            # Zero frames past the longest sentence, so that no sample of it sees the
-            # bucket's edge (the JAX engine adds stream_context_frames alone).
-            need = int(total_frames.max()) + max(self.ecfg.stream_context_frames, tts.reach_frames(self.mcfg))
-            fb = min((x for x in self.ecfg.vocode_frame_buckets if x >= need), default=t_full)
-            fb = min(fb, t_full)
-            if (batch_bucket, bucket, fb) not in self._vocode_shapes_seen:
-                self._vocode_shapes_seen.add((batch_bucket, bucket, fb))
-                self.stats["compiles"] += 1
-            with span("engine.decode_vocode"):
-                packed = [
-                    self._pack(tts.decode_vocode(
-                        rep, e["enc"], e["spk"], e["durations"], args[1], fb, self.mcfg,
-                        dtype, local_attention_from=t_full,
-                    )["audio"])
-                    for (rep, args), e in zip(shards, encs)
-                ]
-            host = [self._readback(a) for a in packed]
-            total = total_frames * self.hop
-            with self._stats_lock:
-                self.stats["vocode_frames_executed"] += int(fb * batch_bucket)
-                self.stats["vocode_frames_worstcase"] += int(t_full * batch_bucket)
-        else:
-            fb = t_full
-            with span("engine.synthesize"):
-                outs = [tts.synthesize(rep, *args, self.mcfg, dtype) for rep, args in shards]
-                packed = [(self._pack(o["audio"]), o["total_samples"]) for o in outs]
-            host = [self._readback(a) for a, _ in packed]
-            with span("engine.readback"):
-                total = np.concatenate([t.cpu().numpy() for _, t in packed])
-        return host, total, fb
+        with span("engine.encode"):
+            encs = [tts.encode_acoustic(rep, *args, self.mcfg, dtype) for rep, args in shards]
+        # The one [B] readback; the frame bucket covers the whole batch.
+        with span("engine.readback"):
+            total_frames = np.concatenate([e["total_frames"].cpu().numpy() for e in encs])
+        # Zero frames past the longest sentence, so that no sample of it sees the
+        # bucket's edge (the JAX engine adds stream_context_frames alone).
+        need = int(total_frames.max()) + max(self.ecfg.stream_context_frames, tts.reach_frames(self.mcfg))
+        fb = min((x for x in self.ecfg.vocode_frame_buckets if x >= need), default=t_full)
+        fb = min(fb, t_full)
+        if (batch_bucket, bucket, fb) not in self._vocode_shapes_seen:
+            self._vocode_shapes_seen.add((batch_bucket, bucket, fb))
+            self.stats["compiles"] += 1
+        with span("engine.decode_vocode"):
+            packed = [
+                self._pack(tts.decode_vocode(
+                    rep, e["enc"], e["spk"], e["durations"], args[1], fb, self.mcfg,
+                    dtype, local_attention_from=t_full,
+                )["audio"])
+                for (rep, args), e in zip(shards, encs)
+            ]
+        host = [self._readback(a) for a in packed]
+        with self._stats_lock:
+            self.stats["vocode_frames_executed"] += int(fb * batch_bucket)
+            self.stats["vocode_frames_worstcase"] += int(t_full * batch_bucket)
+        return host, total_frames * self.hop, fb
 
     # ------------------------------------------------------------ streaming synthesis
 
@@ -631,7 +594,6 @@ class TTSEngine:
         # The hand kernels' launches in this process (replays included): every engine
         # of the process shares these counters.
         stats["kernel_launches"] = ops.launch_counts()
-        stats["two_stage_dispatch"] = self.two_stage_enabled
         from ..text import g2p
 
         stats["g2p_tiers"] = g2p.get_tier_counts()

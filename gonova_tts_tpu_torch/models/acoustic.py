@@ -71,8 +71,8 @@ def _stack(
 ) -> torch.Tensor:
     """Transformer stack dispatch: the fused kernel (`ops.transformer_stack`) when
     cfg.acoustic_pallas, else the plain layers. The choice depends on `as_if_len`
-    (the one-graph frame count), never on the dispatch shape alone, so two-stage
-    and one-graph audio take the same numeric path."""
+    (the one-shot frame count), never on the dispatch shape alone, so two-stage
+    and one-shot (`tts.synthesize`) audio take the same numeric path."""
     if (
         cfg.acoustic_pallas
         and dtype in (torch.float32, torch.bfloat16)
@@ -201,7 +201,7 @@ def decode(
 ) -> Dict[str, torch.Tensor]:
     """Frame-domain half: length regulate → decoder → mel. `local_attention_from`
     makes the local-vs-full attention (and kernel-vs-plain) choice as if the frame
-    axis were that long, so a frame-bucketed dispatch matches the one-graph shape.
+    axis were that long, so a frame-bucketed dispatch matches the one-shot shape.
     Replayed from a CUDA graph where the serving pass has one (`graphs.run`)."""
     return graphs.run(
         "acoustic.decode",

@@ -133,7 +133,7 @@ def decode_vocode(
 ) -> Dict[str, torch.Tensor]:
     """Frame-domain half: length regulate + decoder + vocoder at `max_frames`.
     Audio below each sequence's total_samples matches `synthesize` whenever
-    max_frames covers the batch and local_attention_from is the one-graph
+    max_frames covers the batch and local_attention_from is the one-shot
     frame count."""
     d = acoustic.decode(
         params["acoustic"], enc, spk, durations, token_mask, max_frames, cfg,

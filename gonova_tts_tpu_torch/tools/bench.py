@@ -9,8 +9,10 @@ The port's `bench.py` (the JAX package's headline benchmark), run by
 The workload is the JAX bench's exactly: `ModelConfig()` and `EngineConfig()`, 16
 utterances of 64 tokens (`np.random.default_rng(0)`), exaggeration 0.5, fixed
 durations of 5 frames a token (so the work does not depend on the weights, which are
-the port's seeded init), bf16 on a card and f32 on the CPU. Two dispatch modes, the
-better one reported:
+the port's seeded init), bf16 on a card and f32 on the CPU. The JAX bench's two
+dispatch modes are timed and, as there, the better one is the headline (`mode`); the
+engine serves two-stage alone, and one-graph is timed only for the JAX bench's
+detail keys and headline rule:
 
   * one-graph: `acoustic.forward` at the static worst case T = 64 * max_frames_per_token
     frames, then `tts.vocode`;

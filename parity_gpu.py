@@ -14,10 +14,11 @@ candidate is the bf16 path with both stack kernels on (`acoustic_pallas`,
 prints three JSON lines with parity.py's keys (`metric`, `mel_mse`, `mcd_db`,
 `vocoder_mrstft`, `pass`), the weights, the device and each stack kernel's
 launches during the line's bf16 run: the gate on a random init (seed 0), the gate
-on the demo checkpoint, and the engine's bf16 two-stage audio graded against its
-bf16 one-graph audio on the demo checkpoint, at the same texts and bucket, with
-the same three metrics (on the log-mels of the two audios). Exits 1 if a gate
-fails or, on CUDA, a line's run launched either stack kernel no time.
+on the demo checkpoint, and the engine's bf16 two-stage audio graded against the
+bf16 one-shot pipeline's (`one_shot`: `tts.synthesize` on the engine's weights)
+on the demo checkpoint, at the same texts and bucket, with the same three metrics
+(on the log-mels of the two audios). Exits 1 if a gate fails or, on CUDA, a line's
+run launched either stack kernel no time.
 """
 
 from __future__ import annotations
@@ -109,22 +110,28 @@ def parity(model, cfg: ModelConfig) -> dict:
     return {**gate(mel_cand, mel_ref, wav_cand, wav_ref), "launches": launches}
 
 
+def one_shot(engine, texts, speakers=None, exaggerations=None) -> list:
+    """What `engine.synthesize_batch` returns, from the one-shot pipeline instead:
+    `tts.synthesize` on the engine's weights (replica 0's) and the engine's batch
+    inputs, every row decoded and vocoded at the token bucket's worst-case frame
+    count, packed and unpacked as the engine packs its audio. One float32 waveform
+    per text, each cut to its row's samples."""
+    tokens, mask, spk, exagg, _, _ = engine._batch_inputs([text_to_ids(t) for t in texts], speakers, exaggerations)
+    with torch.inference_mode():
+        out = tts.synthesize(engine.params, *engine._tensors(tokens, mask, spk, exagg), engine.mcfg,
+                             engine.compute_dtype)
+        audio = engine._to_f32(engine._pack(out["audio"]).cpu().numpy())
+        total = out["total_samples"].cpu().numpy()
+    return [audio[i, : int(total[i])].astype(np.float32) for i in range(len(texts))]
+
+
 def engine_parity(engine) -> dict:
-    """The engine's bf16 two-stage audio vs its bf16 one-graph audio at TEXTS: rows
-    zero-padded to the longest, then the gate's metrics on their log-mels and
-    audio. Rows of unequal length fail the line."""
-    mode = engine.ecfg.two_stage_batch
-
-    def both():
-        try:
-            engine.ecfg.two_stage_batch = False
-            one = engine.synthesize_batch(TEXTS)
-            engine.ecfg.two_stage_batch = True
-            return one, engine.synthesize_batch(TEXTS)
-        finally:
-            engine.ecfg.two_stage_batch = mode
-
-    (one, two), launches = stack_launches(both)
+    """The engine's bf16 two-stage audio vs the bf16 one-shot pipeline's
+    (`one_shot`) at TEXTS: rows zero-padded to the longest, then the gate's metrics
+    on their log-mels and audio. Rows of unequal length fail the line. `launches`
+    counts the engine's pass alone."""
+    one = one_shot(engine, TEXTS)
+    two, launches = stack_launches(lambda: engine.synthesize_batch(TEXTS))
     same_lengths = [len(a) for a in one] == [len(b) for b in two]
     n = max(len(a) for a in one + two)
 
@@ -142,7 +149,7 @@ def engine_parity(engine) -> dict:
                             win_length=m.win_length, n_mels=m.n_mels, fmin=m.fmin, fmax=m.fmax)
             for a in (a_one, a_two)
         )
-        out = gate(mel_two, mel_one, a_two, a_one, metric="parity_bf16_two_stage_vs_one_graph")
+        out = gate(mel_two, mel_one, a_two, a_one, metric="parity_bf16_two_stage_vs_one_shot")
     out["max_abs_diff"] = float((a_two - a_one).abs().max())
     out["same_lengths"] = same_lengths
     out["pass"] = out["pass"] and same_lengths

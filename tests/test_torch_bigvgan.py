@@ -37,8 +37,9 @@ SERVED = dict(
     upsample_kernels=[16, 16, 4, 4], resblock_kernels=[3, 7], resblock_dilations=[[1, 3], [1, 3]],
     compute_dtype="float32", device="cpu",
 )
+# No frame buckets: every pass decodes its token bucket's worst-case frame count.
 ENGINE = dict(token_buckets=[32, 64], batch_buckets=[1, 4], max_batch=4, batch_window_ms=5.0,
-              stream_chunk_frames=24, stream_context_frames=12, warmup_shapes=[[1, 32]], two_stage_batch=False)
+              stream_chunk_frames=24, stream_context_frames=12, warmup_shapes=[[1, 32]], vocode_frame_buckets=[])
 TEXT = "The quiet river ran past the old mill."
 PUBLISHED = dict(upsample_initial_channel=1536, upsample_rates=[4, 4, 2, 2, 2, 2],
                  upsample_kernels=[8, 8, 4, 4, 4, 4], resblock_kernels=[3, 7, 11],
@@ -333,8 +334,8 @@ def engine(checkpoint):
 
 
 def test_engine_serves_what_tts_synthesize_speaks(engine):
-    """One-graph dispatch: the engine's PCM16 equals `tts.synthesize` at the sentence's
-    token bucket within two int16 steps (the transfer truncates, one step, and
+    """A pass at the worst-case frame count: the engine's PCM16 equals `tts.synthesize`
+    at the sentence's token bucket within two int16 steps (the transfer truncates, one step, and
     unpacks by 1/32768 what it packed by 32767, another step at full scale);
     `kernel_launches` rides in `get_stats()`."""
     ids = text_to_ids(TEXT)
@@ -355,12 +356,12 @@ def test_two_stage_passes_keep_the_generators_reach_past_the_longest_sentence(ch
     """With a 1-frame stream context and a frame bucket for every length, a two-stage
     pass still vocodes at least `tts.reach_frames` (11 here) frames past the batch's
     longest sentence, so its last samples do not see the bucket's edge: the engine's
-    PCM16 equals the one-graph `tts.synthesize` at the whole token bucket within three
+    PCM16 equals the one-shot `tts.synthesize` at the whole token bucket within three
     int16 steps (two as above, and the f32 noise of a decode at another length, 0.2
     step). With only the stream context past it, the last three frames missed by 96 to
     18,000 steps."""
-    eng = TTSEngine(_config(checkpoint, stream_context_frames=1, two_stage_batch=True,
-                            vocode_frame_buckets=list(range(8, 256))), device="cpu")
+    eng = TTSEngine(_config(checkpoint, stream_context_frames=1, vocode_frame_buckets=list(range(8, 256))),
+                    device="cpu")
     eng.load(warmup=False)
     assert tts.reach_frames(eng.mcfg) == 11
     ids = text_to_ids(TEXT)

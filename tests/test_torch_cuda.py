@@ -641,7 +641,6 @@ GRAPH_CASES = {
     "vocos-kernels": ({"vocos_pallas": True}, {"acoustic_pallas": True}),
     "hifigan": ({"vocoder_family": "hifigan"}, {}),
     "hifigan-kernels": ({"vocoder_family": "hifigan"}, {"acoustic_pallas": True}),
-    "vocos-one-graph": ({}, {"two_stage_batch": False}),
 }
 
 
@@ -660,7 +659,6 @@ def test_graphed_passes_equal_the_eager_pass_at_every_warmed_shape(setup, case):
     captured = graphed.get_stats()["graphs_captured"]
     assert captured == len(graphed._graphs) > 0
     rng = setup[2]
-    two_stage = graphed.two_stage_enabled
     with torch.inference_mode():
         for batch, bucket in graphed.ecfg.warmup_shapes:
             lengths = rng.integers(bucket // 2, bucket + 1, size=batch)
@@ -669,17 +667,14 @@ def test_graphed_passes_equal_the_eager_pass_at_every_warmed_shape(setup, case):
             arrays = (tokens, (tokens > 0).astype(np.float32),
                       rng.standard_normal((batch, 32)).astype(np.float32), np.full((batch,), 0.4, np.float32))
             t_full = bucket * graphed.mcfg.max_frames_per_token
-            for fb in graphed._frame_buckets(bucket) if two_stage else [t_full]:
+            for fb in graphed._frame_buckets(bucket):
                 audio = []
                 for eng in (graphed, eager):
                     args = eng._shards(*arrays)[0][1]
                     with graphs.active(eng._graphs) as gs:
-                        if two_stage:
-                            e = tts.encode_acoustic(eng.params, *args, eng.mcfg, eng.compute_dtype)
-                            out = tts.decode_vocode(eng.params, e["enc"], e["spk"], e["durations"], args[1], fb,
-                                                    eng.mcfg, eng.compute_dtype, local_attention_from=t_full)
-                        else:
-                            out = tts.synthesize(eng.params, *args, eng.mcfg, eng.compute_dtype)
+                        e = tts.encode_acoustic(eng.params, *args, eng.mcfg, eng.compute_dtype)
+                        out = tts.decode_vocode(eng.params, e["enc"], e["spk"], e["durations"], args[1], fb,
+                                                eng.mcfg, eng.compute_dtype, local_attention_from=t_full)
                         audio.append(eng._pack(out["audio"]).cpu())
                     if gs is not None:
                         assert gs.eager == 0 and gs.replayed == 3, (batch, bucket, fb)

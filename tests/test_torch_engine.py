@@ -1,9 +1,12 @@
 """The port's TTSEngine vs the JAX TTSEngine at tests/test_engine.py's tiny config, f32.
 
 The port engine serves the JAX engine's own seeded weights (loaded with
-`params.from_numpy_tree`). Bounds, in int16 PCM steps as the JAX engine pins them:
-port vs JAX and two-stage vs one-graph within 1.01/32767 (one LSB: float rounding
-may flip one quantization step); streamed vs one-shot within 2.5/32768.
+`params.from_numpy_tree`). Every port pass is two-stage; it is held against the JAX
+engine at either of that engine's dispatch modes and against the one-shot pipeline
+(`parity_gpu.one_shot`: `tts.synthesize` at the worst-case frame count, packed as
+the engine packs). Bounds, in int16 PCM steps as the JAX engine pins them: port vs
+JAX and two-stage vs one-shot within 1.01/32767 (one LSB: float rounding may flip
+one quantization step); streamed vs one-shot within 2.5/32768.
 """
 
 import time
@@ -20,6 +23,7 @@ from gonova_tts_tpu.engine import TTSEngine as JTTSEngine
 from gonova_tts_tpu_torch.config import Config, EngineConfig, ModelConfig
 from gonova_tts_tpu_torch.engine import TTSEngine
 from gonova_tts_tpu_torch.models import params
+from parity_gpu import one_shot
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -69,28 +73,30 @@ def pair():
 
 
 def pinned(engine, mode, texts, **kw):
-    old = engine.ecfg.two_stage_batch
-    engine.ecfg.two_stage_batch = mode
-    try:
+    """The JAX engine's batch at one dispatch mode (False: one-graph, True: two-stage)."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(type(engine), "two_stage_enabled", property(lambda self: mode))
         return engine.synthesize_batch(texts, **kw)
-    finally:
-        engine.ecfg.two_stage_batch = old
 
 
 @pytest.mark.parametrize("mode", [False, True])
 def test_synthesize_batch_matches_jax_engine(pair, mode):
+    """The port's two-stage batch against the JAX engine's one-graph (False) and
+    two-stage (True) batch."""
     port, ref = pair
-    ours, theirs = pinned(port, mode, TEXTS), pinned(ref, mode, TEXTS)
+    ours, theirs = port.synthesize_batch(TEXTS), pinned(ref, mode, TEXTS)
     for a, b in zip(ours, theirs):
         assert a.shape == b.shape and a.dtype == np.float32
         np.testing.assert_allclose(a, b, atol=1.01 * LSB16, rtol=0)
 
 
 def test_two_stage_matches_one_graph(pair):
+    """The engine's frame-bucketed pass against the one-shot pipeline at the
+    token bucket's worst-case frame count."""
     port, _ = pair
-    one = pinned(port, False, TEXTS)
+    one = one_shot(port, TEXTS)
     before = dict(port.stats)
-    two = pinned(port, True, TEXTS)
+    two = port.synthesize_batch(TEXTS)
     assert port.stats["vocode_frames_executed"] - before["vocode_frames_executed"] > 0
     assert (
         port.stats["vocode_frames_executed"] - before["vocode_frames_executed"]
@@ -105,8 +111,9 @@ def test_speaker_and_exaggeration_match_jax_engine(pair):
     port, ref = pair
     spk = np.random.default_rng(3).standard_normal(32).astype(np.float32) * 0.3
     kw = dict(speakers=[spk, None], exaggerations=[0.0, 1.5])
-    for mode in (False, True):
-        for a, b in zip(pinned(port, mode, TEXTS, **kw), pinned(ref, mode, TEXTS, **kw)):
+    ours = port.synthesize_batch(TEXTS, **kw)
+    for want in (pinned(ref, False, TEXTS, **kw), pinned(ref, True, TEXTS, **kw), one_shot(port, TEXTS, **kw)):
+        for a, b in zip(ours, want):
             np.testing.assert_allclose(a, b, atol=1.01 * LSB16, rtol=0)
 
 
@@ -120,7 +127,7 @@ def test_streamed_matches_one_shot(pair, ctx):
         jstreamed = np.concatenate(list(ref.synthesize_stream(text)))
     finally:
         port.ecfg.stream_context_frames = ref.ecfg.stream_context_frames = 12
-    whole = pinned(port, False, [text])[0]
+    whole = one_shot(port, [text])[0]
     np.testing.assert_allclose(streamed, whole, atol=2.5 / 32768)
     np.testing.assert_allclose(streamed, jstreamed, atol=1.01 * LSB16, rtol=0)
     assert list(port.synthesize_stream("")) == []
@@ -145,15 +152,16 @@ def test_streamed_equals_batch_on_the_demo_checkpoint(dtype):
 
 
 def test_two_stage_local_attention_choice_follows_one_graph():
-    """One-graph frame count past the local threshold, frame bucket below it: the
-    two-stage decode must still take local attention (and match the JAX engine)."""
+    """One-shot frame count past the local threshold, frame bucket below it: the
+    two-stage decode must still take local attention, as the one-shot pipeline
+    does (and match the JAX engine)."""
     port, ref = engines(
         model={"local_attention_min_frames": 256, "decoder_attention_window": 32},
         engine={"warmup_shapes": [], "token_buckets": [64]},
     )
     text = ["The quick brown fox jumps over the lazy dog near the river bank."]
-    one = pinned(port, False, text)
-    two = pinned(port, True, text)
+    one = one_shot(port, text)
+    two = port.synthesize_batch(text)
     np.testing.assert_allclose(one[0], two[0], atol=1.01 * LSB16, rtol=0)
     np.testing.assert_allclose(two[0], pinned(ref, True, text)[0], atol=1.01 * LSB16, rtol=0)
 
@@ -162,7 +170,7 @@ def test_kernel_routes_match_jax_engine():
     """Both kernel switches on: the port's plain kernel versions vs JAX's Pallas
     kernels in interpret mode, through the whole engine."""
     port, ref = engines(model={"acoustic_pallas": True, "vocos_pallas": True}, engine={"warmup_shapes": []})
-    for a, b in zip(pinned(port, True, TEXTS), pinned(ref, True, TEXTS)):
+    for a, b in zip(port.synthesize_batch(TEXTS), pinned(ref, True, TEXTS)):
         np.testing.assert_allclose(a, b, atol=1.01 * LSB16, rtol=0)
 
 
@@ -171,13 +179,14 @@ def test_load_warmup_stats_health(pair):
     eng = TTSEngine(port_cfg, device="cpu", seed=3)
     assert eng.health_check()["status"] == "unloaded"
     eng.load(warmup=True)
-    assert eng.is_loaded and eng.stats["compiles"] >= 2  # warmup shape + stream window
-    assert eng.two_stage_enabled  # a CPU readback is far under the 1 ms threshold
+    # The warm-up shape's encode, its decode_vocode at every frame bucket, the stream window.
+    assert eng.is_loaded and eng.stats["compiles"] == 2 + len(eng._frame_buckets(32)) == 5
+    assert eng.two_stage_enabled
     assert eng.synthesize_batch([]) == []
     outs = eng.synthesize_batch([f"Sentence number {i}." for i in range(9)])  # > largest bucket
     assert len(outs) == 9 and all(np.isfinite(w).all() and len(w) % eng.hop == 0 for w in outs)
     stats = eng.get_stats()
-    assert 0.0 < stats["padding_efficiency"] <= 1.0 and stats["two_stage_dispatch"] is True
+    assert 0.0 < stats["padding_efficiency"] <= 1.0
     assert stats["timers"]["engine.pass"]["count"] == 1
     assert eng.health_check()["status"] == "ok"
     eng.synthesize_batch(["x"], id_lists=[[5] * 250])
@@ -192,6 +201,29 @@ def test_load_warmup_stats_health(pair):
     finally:
         eng._busy_since = 0.0
         eng._lock.release()
+
+
+def test_load_reads_nothing_back_from_the_device(monkeypatch):
+    """Without warm-up, `load` copies nothing from the device to the host: it
+    times no readback to choose a dispatch mode."""
+    port_cfg, _ = configs()
+    copies = []
+
+    def counted(name):
+        real = getattr(torch.Tensor, name)
+
+        def call(self, *args, **kwargs):
+            copies.append(name)
+            return real(self, *args, **kwargs)
+        return call
+
+    for name in ("cpu", "numpy", "item", "tolist"):
+        monkeypatch.setattr(torch.Tensor, name, counted(name))
+    eng = TTSEngine(port_cfg, device="cpu")
+    eng.load(warmup=False)
+    assert eng.is_loaded and copies == []
+    monkeypatch.undo()
+    assert len(eng.synthesize_batch(TEXTS[:1])) == 1
 
 
 def test_entry_points_default_to_cuda():

@@ -28,7 +28,7 @@ MODEL = dict(
 ENGINE = dict(
     token_buckets=[32, 64, 128], batch_buckets=[1, 4], max_batch=4, batch_window_ms=5.0,
     stream_chunk_frames=24, stream_context_frames=12, warmup_shapes=[[1, 32], [4, 32]],
-    vocode_frame_buckets=[128, 192], two_stage_batch=True,
+    vocode_frame_buckets=[128, 192],
 )
 TEXTS = ["Hello there world.", "A second one here.", "Third one.", "Four."]
 
@@ -250,16 +250,6 @@ def test_streaming_stays_eager_and_matches_the_one_shot_pass(pair):
     one_shot = graphed.synthesize_batch([TEXTS[0]])[0]
     assert streamed.shape == one_shot.shape
     assert float(np.abs(streamed - one_shot).max()) <= 2.5 / 32768
-
-
-def test_one_graph_mode_replays_encode_decode_and_vocoder():
-    graphed, eager = _engines(engine=dict(two_stage_batch=False, warmup_shapes=[[4, 32]]))
-    assert sorted(key[0] for key in graphed._graphs.graphs) == ["acoustic.decode", "acoustic.encode", "vocos.forward"]
-    for texts in (TEXTS[:3], TEXTS[1:3]):
-        got = graphed.synthesize_batch(texts)
-        for g, w in zip(got, eager.synthesize_batch(texts)):
-            assert np.array_equal(g, w)
-    assert graphed.stats["graph_passes"] == 2 and graphed.stats["eager_passes"] == 0
 
 
 def test_the_hifigan_family_replays_its_forward():

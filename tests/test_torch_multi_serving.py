@@ -16,6 +16,7 @@ import torch
 from gonova_tts_tpu_torch.config import Config, EngineConfig, ModelConfig
 from gonova_tts_tpu_torch.engine import TTSEngine, multi
 from gonova_tts_tpu_torch.engine.multi import DataParallel
+from parity_gpu import one_shot
 
 MODEL = dict(
     d_model=64, n_heads=2, d_ff=128, encoder_layers=1, decoder_layers=1,
@@ -51,10 +52,10 @@ def eight_devices(monkeypatch):
     monkeypatch.setattr(multi, "local_devices", lambda device: [torch.device("cpu")] * 8)
 
 
-def port_engine(checkpoint, n, two_stage):
+def port_engine(checkpoint, n):
     cfg = Config()
     cfg.model = ModelConfig(**MODEL, model_path=checkpoint, device="cpu")
-    cfg.engine = EngineConfig(**ENGINE, data_parallel=n, two_stage_batch=two_stage)
+    cfg.engine = EngineConfig(**ENGINE, data_parallel=n)
     eng = TTSEngine(cfg, device="cpu")
     eng.load(warmup=False)
     return eng
@@ -81,11 +82,12 @@ def test_place_params_gives_each_device_its_own_replica():
 
 
 @pytest.mark.parametrize("two_stage", [False, True], ids=["one_graph", "two_stage"])
-def test_dp_engine_matches_jax_dp_engine(checkpoint, eight_devices, two_stage):
-    """8 replicas against the JAX engine's 8-device mesh, one-graph and two-stage
-    (the frame bucket from the whole batch's frame counts): the same lengths, audio
-    within 3e-3; and the port's dp audio within one int16 step of its own
-    one-replica engine."""
+def test_dp_engine_matches_jax_dp_engine(checkpoint, eight_devices, monkeypatch, two_stage):
+    """8 two-stage replicas (the frame bucket from the whole batch's frame counts)
+    against the JAX engine's 8-device mesh, one-graph or two-stage: the same
+    lengths, audio within 3e-3; and the port's dp audio within one int16 step of
+    the one-shot pipeline on one replica (one_graph) or of its own one-replica
+    engine (two_stage)."""
     from gonova_tts_tpu.config import Config as JConfig
     from gonova_tts_tpu.config import EngineConfig as JEngineConfig
     from gonova_tts_tpu.config import ModelConfig as JModelConfig
@@ -93,15 +95,17 @@ def test_dp_engine_matches_jax_dp_engine(checkpoint, eight_devices, two_stage):
 
     jcfg = JConfig()
     jcfg.model = JModelConfig(**MODEL, model_path=checkpoint)
-    jcfg.engine = JEngineConfig(**ENGINE, data_parallel=8, two_stage_batch=two_stage)
+    jcfg.engine = JEngineConfig(**ENGINE, data_parallel=8)
+    monkeypatch.setattr(JTTSEngine, "two_stage_enabled", property(lambda self: two_stage))
     ref = JTTSEngine(jcfg, seed=0)
     ref.load(warmup=False)
     want = ref.synthesize_batch(TEXTS)
 
-    eng = port_engine(checkpoint, 8, two_stage)
+    eng = port_engine(checkpoint, 8)
     assert len(eng.replicas) == 8 and eng.params is eng.replicas[0]
     got = eng.synthesize_batch(TEXTS)
-    one = port_engine(checkpoint, 1, two_stage).synthesize_batch(TEXTS)
+    one_replica = port_engine(checkpoint, 1)
+    one = one_replica.synthesize_batch(TEXTS) if two_stage else one_shot(one_replica, TEXTS)
     assert len(got) == len(want) == len(one) == 8
     for a, b, c in zip(got, want, one):
         assert len(a) == len(b) == len(c)
@@ -115,13 +119,14 @@ def test_dp_engine_rounds_small_batches(checkpoint, eight_devices):
     """One request is padded to 8 rows (one a replica) and comes back alone, equal
     to the one-replica engine's audio within one int16 step; warmup runs the
     rounded shape on every replica."""
-    eng = port_engine(checkpoint, 8, False)
+    eng = port_engine(checkpoint, 8)
     eng.ecfg.warmup_shapes = [[1, 32]]
     eng.warmup()
-    assert eng.stats["compiles"] == 2  # the (8, 32) batch shape and the stream window
+    # The (8, 32) batch shape's encode, its decode_vocode at each frame bucket, the stream window.
+    assert eng.stats["compiles"] == 2 + len(eng._frame_buckets(32)) == 5
     out = eng.synthesize_batch(["One lonely request."])
     assert len(out) == 1 and np.isfinite(out[0]).all()
-    ref = port_engine(checkpoint, 1, False).synthesize_batch(["One lonely request."])
+    ref = port_engine(checkpoint, 1).synthesize_batch(["One lonely request."])
     np.testing.assert_allclose(out[0], ref[0], atol=1.01 / 32767)
     assert eng.stats["padded_tokens"] == 8 * 32
 
@@ -129,8 +134,8 @@ def test_dp_engine_rounds_small_batches(checkpoint, eight_devices):
 def test_dp_streaming_and_embedding_run_on_replica_zero(checkpoint, eight_devices):
     """Streaming and voice embedding run on replica 0 and equal the one-replica
     engine's (bit-equal: the same weights on the same device)."""
-    eng = port_engine(checkpoint, 8, False)
-    one = port_engine(checkpoint, 1, False)
+    eng = port_engine(checkpoint, 8)
+    one = port_engine(checkpoint, 1)
     text = "Streaming on a mesh. Second sentence."
     chunks = list(eng.synthesize_stream(text))
     assert len(chunks) >= 2 and all(np.isfinite(c).all() for c in chunks)

@@ -1,7 +1,7 @@
 """parity_gpu.py on the CPU: its metrics equal parity.py's (the JAX package's
 mel_mse, mcd and multi_resolution_stft_loss) on the same arrays, rtol 1e-5; its
 main prints its three lines with the five keys of parity.py's line at a small
-config; the engine line (two-stage vs one-graph) runs. On the CPU the kernel
+config; the engine line (two-stage vs the one-shot pipeline) runs. On the CPU the kernel
 wrappers run their plain versions, so the bf16 candidate differs from the f32
 reference by bf16 alone."""
 
@@ -61,7 +61,7 @@ def test_main_prints_parity_py_keys(capsys, monkeypatch, tmp_path):
     monkeypatch.setattr(parity_gpu, "DEMO", small)
     rc = parity_gpu.main(["--device", "cpu"], cfg=cfg)
     lines = [json.loads(x) for x in capsys.readouterr().out.splitlines()]
-    assert [line["metric"] for line in lines] == ["parity_bf16_vs_f32"] * 2 + ["parity_bf16_two_stage_vs_one_graph"]
+    assert [line["metric"] for line in lines] == ["parity_bf16_vs_f32"] * 2 + ["parity_bf16_two_stage_vs_one_shot"]
     assert [line["weights"] for line in lines] == ["random seed 0", "small.npz", "small.npz"]
     for line in lines:
         assert KEYS <= set(line) and line["device"] == "cpu"
@@ -84,7 +84,8 @@ def test_engine_line_on_the_cpu():
     eng = TTSEngine(cfg, device="cpu")
     eng.load(warmup=False)
     line = parity_gpu.engine_parity(eng)
-    assert KEYS <= set(line) and line["metric"] == "parity_bf16_two_stage_vs_one_graph"
-    # f32 on the CPU: two-stage and one-graph audio within one PCM16 step.
+    assert KEYS <= set(line) and line["metric"] == "parity_bf16_two_stage_vs_one_shot"
+    # f32 on the CPU: two-stage and one-shot audio within one PCM16 step.
     assert line["same_lengths"] and line["max_abs_diff"] <= 1.01 / 32767 and line["pass"]
-    assert eng.ecfg.two_stage_batch == "auto"  # restored
+    # The engine's pass vocoded a frame bucket below the one-shot worst case.
+    assert 0 < eng.stats["vocode_frames_executed"] < eng.stats["vocode_frames_worstcase"]

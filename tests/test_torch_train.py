@@ -138,7 +138,7 @@ def test_engine_data_parallel(n):
     message (engine/multi.py)."""
     cfg = Config()
     cfg.model = ModelConfig(**TINY, device="cpu", compute_dtype="float32")
-    cfg.engine = EngineConfig(data_parallel=n, two_stage_batch=False)
+    cfg.engine = EngineConfig(data_parallel=n)
     eng = TTSEngine(cfg, device="cpu")
     if n == 2:
         with pytest.raises(ValueError, match="requested 2 devices, have 1"):
@@ -511,7 +511,7 @@ def test_training_root_resolves_to_its_newest_step(jtree, tmp_path):
     )
     cfg = Config()
     cfg.model = ModelConfig(**TINY, device="cpu", compute_dtype="float32", model_path=root)
-    cfg.engine = EngineConfig(two_stage_batch=False)
+    cfg.engine = EngineConfig()
     eng = TTSEngine(cfg, device="cpu")
     eng.load(warmup=False)
     torch.testing.assert_close(eng.params.acoustic.mel_out.w, new.acoustic.mel_out.w.detach(), rtol=0, atol=0)

@@ -305,18 +305,17 @@ def engines(small, tmp_path_factory):
 
 
 def pinned(engine, mode, texts):
-    old = engine.ecfg.two_stage_batch
-    engine.ecfg.two_stage_batch = mode
-    try:
+    """The JAX engine's batch at one dispatch mode (False: one-graph, True: two-stage)."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(type(engine), "two_stage_enabled", property(lambda self: mode))
         return engine.synthesize_batch(texts)
-    finally:
-        engine.ecfg.two_stage_batch = old
 
 
 @pytest.mark.parametrize("mode", ["one_graph", "two_stage", "stream"])
 def test_engine_matches_jax_engine(engines, mode):
-    """TTSEngine serving NovaGAN from the JAX engine's checkpoint: one-graph, two-stage
-    and streamed PCM equal the JAX engine's within one int16 step. The stream is
+    """TTSEngine serving NovaGAN from the JAX engine's checkpoint: its two-stage PCM
+    equals the JAX engine's one-graph and two-stage PCM, and its streamed PCM the
+    JAX engine's stream, within one int16 step. The stream is
     held against the JAX engine's stream: its context rule reads vocos_layers for
     either family, shorter than the generator's receptive field, so neither
     package's stream equals its one-shot audio here."""
@@ -328,8 +327,7 @@ def test_engine_matches_jax_engine(engines, mode):
         assert len(ours) == len(theirs) > 2
         got, want = np.concatenate(ours), np.concatenate(theirs)
     else:
-        two = mode == "two_stage"
-        got, want = pinned(port, two, TEXTS), pinned(ref, two, TEXTS)
+        got, want = port.synthesize_batch(TEXTS), pinned(ref, mode == "two_stage", TEXTS)
         assert [a.shape for a in got] == [b.shape for b in want]
         got, want = np.concatenate(got), np.concatenate(want)
     assert got.dtype == np.float32 and np.abs(got).max() > 0
