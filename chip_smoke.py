@@ -522,20 +522,24 @@ def snake_cost(b: int, c: int, t: int, elem: int):
 
 def snake_cases(torch, dev):
     """`ops.snake_aa` against its plain version at the bigvgan-narrate cell's shapes:
-    stages 1 and 5 of the published generator at (B=4, 256 frames) and (B=16, 448
-    frames), bf16, and stage 5 at B=4 in f32; x lies as the convs leave it ([B, C, T])."""
+    the six stages of the published generator at (B=4, 256 frames) and (B=16, 448
+    frames), bf16, x [B, T, C] contiguous as the convs leave it, the bias of the conv
+    before it added as it loads; stage 5 at B=4 in f32. Each bf16 case also times
+    every (channels a lane, outputs a lane) plan the kernel builds (`plans`: device
+    ms from a replayed graph), from which `snake_aa.PLAN` is chosen."""
     from gonova_tts_tpu_torch.ops import snake_aa as sa
     from gonova_tts_tpu_torch.ops.gemm_tc_sweep import graph_ms
 
     cases = []
     shapes = [(b, frames, stage, c, per) for b, frames in ((4, 256), (16, 448))
-              for stage, c, per in ((1, 768, 4), (5, 48, 128))]
-    for (b, frames, stage, c, per), dtype in [(s, torch.bfloat16) for s in shapes] + [(shapes[1], torch.float32)]:
+              for stage, (c, per) in enumerate(zip((768, 384, 192, 96, 48, 24), (4, 16, 32, 64, 128, 256)), 1)]
+    for (b, frames, stage, c, per), dtype in [(s, torch.bfloat16) for s in shapes] + [(shapes[4], torch.float32)]:
         t = frames * per
         g = torch.Generator(device=dev).manual_seed(b * 7 + stage)
-        x = (torch.randn((b, c, t), generator=g, device=dev) * 2.0).transpose(1, 2).to(dtype)
+        x = (torch.randn((b, t, c), generator=g, device=dev) * 2.0).to(dtype)
         consts = sa.constants(torch.randn(c, generator=g, device=dev) * 0.1, torch.randn(c, generator=g, device=dev) * 0.1)
-        out, ref = sa.snake_aa(x, *consts), sa.snake_aa_plain(x, *consts)
+        bias = torch.randn(c, generator=g, device=dev) * 0.1
+        out, ref = sa.snake_aa(x, *consts, bias), sa.snake_aa_plain(x, *consts, bias)
         torch.cuda.synchronize()
         err = (out.float() - ref.float()).abs()
         if dtype == torch.bfloat16:
@@ -546,16 +550,22 @@ def snake_cases(torch, dev):
             tol = f"{SNAKE_F32_REL} * max(1, |plain|)"
         ops_n, moved = snake_cost(b, c, t, x.element_size())
         bound_ms, bound_by = bound(moved, ops_n, "float32")
-        device_ms = graph_ms(lambda: sa.snake_aa(x, *consts), 10)
-        cases.append({
+        device_ms = graph_ms(lambda: sa.snake_aa(x, *consts, bias), 10)
+        case = {
             "case": f"stage {stage} C={c} B={b} T={frames} frames ({t} samples)", "dtype": name_of(dtype),
-            "max_abs_err": float(err.max()), "tolerance": tol, "ok": ok and out.shape == x.shape,
-            "ms": cuda_ms(lambda: sa.snake_aa(x, *consts), 10), "device_ms": device_ms,
-            "plain_ms": cuda_ms(lambda: sa.snake_aa_plain(x, *consts), 3),
+            "max_abs_err": float(err.max()), "tolerance": tol,
+            "ok": ok and out.shape == x.shape and out.is_contiguous(), "plan": list(sa.PLAN),
+            "ms": cuda_ms(lambda: sa.snake_aa(x, *consts, bias), 10), "device_ms": device_ms,
+            "plain_ms": cuda_ms(lambda: sa.snake_aa_plain(x, *consts, bias), 3),
             "bound_ms": bound_ms, "bound_by": bound_by, "bound_share_pct": 100.0 * bound_ms / device_ms,
             "gbytes": moved / 1e9,
-        })
-        del x, out, ref
+        }
+        if dtype == torch.bfloat16:
+            case["plans"] = {f"{v}x{sg}": graph_ms(lambda: sa._launch(x, *consts, bias, plan=(v, sg)), 10)
+                             for v, sg in sa.PLANS}
+        cases.append(case)
+        del x, out, ref, err
+        torch.cuda.empty_cache()
     return cases
 
 
@@ -567,16 +577,19 @@ BIGVGAN_V2 = dict(vocoder_family="bigvgan", n_mels=100, speaker_n_mels=80, upsam
 def conv_cases(torch, dev):
     """Every dilated conv of the published BigVGAN-v2 generator alone (C of each stage,
     k 3/7/11, d 3/5), bf16 at B=16 and 448 frames, and those of stages 0-2 again at
-    B=4 and 256 frames; x lying as [B, C, T] as the activation leaves it, f32 weights
-    cast per call as in a forward: run dilated (`layers.conv1d`) and phase-split
-    (`layers.conv1d_phased`). Each path: the call's device ms from a replayed graph
+    B=4 and 256 frames; x [B, T, C] contiguous as the activation leaves it, the
+    weights packed once (`layers._nwc_weights`, built before the timing) as in a
+    served forward, the bias left to the activation after it: run dilated
+    (`layers.conv1d_nwc`) and phase-split (`layers.conv1d_phased`), both
+    channels-last, and dilated through the channels-first `layers.conv1d` as a
+    yardstick (`ncw`: its weight cast per call, its bias added, cuDNN's layout
+    conversions at both ends). Each path: the call's device ms from a replayed graph
     and its TFLOP/s (2 B C² k T operations), the kernel with the most device time in
-    one profiled call (its name and ms), and its error against the f32 sum of the
-    same bf16 operands. The phase path against the dilated conv: both round the
-    conv's f32 sum and then its sum with the bias to bf16, so they may differ by a
-    bf16 step (2^-7) of each, 2^-7 (2 |dilated| + |b|), plus the f32 noise of values
-    near 0 (1e-4 of the largest). And whether the model's rule
-    (`bigvgan.phase_split`) takes the phase path there."""
+    one profiled call (its name and ms), and, for the two channels-last paths, the
+    error against the f32 sum of the same bf16 operands. The phase path against the
+    dilated conv: both round the conv's f32 sum to bf16, so they may differ by a bf16
+    step (2^-7) of it, plus the f32 noise of values near 0 (1e-4 of the largest). And
+    whether the model's rule (`bigvgan.phase_split`) takes the phase path there."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as tprofile
 
@@ -600,33 +613,34 @@ def conv_cases(torch, dev):
     for b, frames, stage in [(16, 448, i) for i in range(len(per))] + [(4, 256, i) for i in range(3)]:
         c, t = cfg.upsample_initial_channel // 2 ** (stage + 1), frames * per[stage]
         g = torch.Generator(device=dev).manual_seed(stage)
-        x = torch.randn((b, c, t), generator=g, device=dev).to(torch.bfloat16).transpose(1, 2)
+        x = torch.randn((b, t, c), generator=g, device=dev).to(torch.bfloat16)
         for k in cfg.resblock_kernels:
-            p = {"w": torch.randn((k, c, c), generator=g, device=dev) * 0.01,
-                 "b": torch.randn(c, generator=g, device=dev) * 0.1}
-            p32 = {"w": p["w"].bfloat16().float(), "b": p["b"].bfloat16().float()}
+            p = layers.leaf(w=torch.randn((k, c, c), generator=g, device=dev) * 0.01,
+                            b=torch.randn(c, generator=g, device=dev) * 0.1)
+            w32 = p["w"].bfloat16().float()
             flops = 2 * b * c * c * k * t
             for d in sorted({d for rd in cfg.resblock_dilations for d in rd if d > 1}):
                 case = {"stage": stage, "C": c, "k": k, "d": d, "B": b, "T": t, "gflop": flops / 1e9,
                         "rule": bigvgan.phase_split(c, k, d)}
-                paths = {"dilated": lambda: layers.conv1d(p, x, dilation=d, dtype=torch.bfloat16),
-                         "phased": lambda: layers.conv1d_phased(p, x, d, torch.bfloat16)}
+                paths = {"dilated": lambda: layers.conv1d_nwc(p, x, torch.bfloat16, dilation=d, bias=False),
+                         "phased": lambda: layers.conv1d_phased(p, x, d, torch.bfloat16),
+                         "ncw": lambda: layers.conv1d(p, x, dilation=d, dtype=torch.bfloat16)}
                 for name, fn in paths.items():
+                    fn()
                     ms = graph_ms(fn, 5)
                     kernel, kernel_ms = top_kernel(fn)
                     case[name] = {"device_ms": ms, "tflops": flops / ms / 1e9, "kernel": kernel, "kernel_ms": kernel_ms}
                 ref, out = paths["dilated"](), paths["phased"]()
                 with torch.backends.cudnn.flags(allow_tf32=False):
-                    exact = layers.conv1d(p32, x.float(), dilation=d)
+                    exact = layers._conv1d(w32, x.float(), 1, torch.float32, 1, d)
                 torch.cuda.synchronize()
                 err, ref = (out.float() - ref.float()).abs(), ref.float()
                 for name, y in (("dilated", ref), ("phased", out.float())):
                     case[name]["max_err_vs_f32"] = float((y - exact).abs().max())
                 rel, atol = SNAKE_BF16_STEP
-                tol = rel * (2 * ref.abs() + p["b"].bfloat16().float().abs()) + atol * float(ref.abs().max())
+                tol = rel * ref.abs() + atol * float(ref.abs().max())
                 case.update(max_abs_err=float(err.max()), ref_max=float(ref.abs().max()),
-                            ok=out.shape == ref.shape and out.transpose(1, 2).is_contiguous()
-                            and bool((err <= tol).all()),
+                            ok=out.shape == ref.shape and out.is_contiguous() and bool((err <= tol).all()),
                             speedup=case["dilated"]["device_ms"] / case["phased"]["device_ms"])
                 cases.append(case)
                 del ref, out, err, exact, tol
@@ -672,9 +686,9 @@ def run_bigvgan_service(torch, np, report):
     warm-up) over the demo checkpoint's acoustic model and speaker encoder, with a
     100-band mel head and the published generator from seed 0. Launch counts and the
     engine's pass counters from zero just before eight synthesize_full calls (the REST
-    method), read just after: every pass replayed, and 109 `snake_aa` launches and
-    `len(bigvgan.phased_convs(cfg))` phase-split convs for each pass's one vocoder
-    forward."""
+    method), read just after: every pass replayed, and 109 `snake_aa` launches, 116
+    channels-last convs (`conv_nwc`) and `len(bigvgan.phased_convs(cfg))` phase-split
+    convs for each pass's one vocoder forward."""
     from gonova_tts_tpu_torch import ops
     from gonova_tts_tpu_torch.config import Config, EngineConfig, ModelConfig
     from gonova_tts_tpu_torch.models import bigvgan
@@ -728,6 +742,7 @@ def run_bigvgan_service(torch, np, report):
         "bigvgan_every_pass_replayed": forwards > 0 and passes["eager_passes"] == 0,
         "bigvgan_snake_aa_109_a_forward": launches.get("snake_aa", 0) == 109 * forwards,
         "bigvgan_conv_phased_a_forward": launches.get("conv_phased", 0) == len(bigvgan.phased_convs(mcfg)) * forwards,
+        "bigvgan_conv_nwc_a_forward": launches.get("conv_nwc", 0) == bigvgan.convs(mcfg) * forwards,
     }
     out["checks"] = checks
     report["bigvgan"] = out

@@ -14,15 +14,24 @@ package has no counterpart. Activations are [B, T, C]:
 
 `act` is the anti-aliased Snake-beta (`ops/snake_aa.py`: the CUDA kernel on a card,
 its plain version on the CPU), with per-channel log-scale `alpha` and `beta`. Every
-conv is `layers.conv1d` / `layers.conv1d_transpose` (cuDNN on the card), but for the
-dilated AMP convs that `phase_split` picks (768, 384 and 192 channels with
-(k - 1)·d >= 30, nine a forward at the published widths): they run as
-`layers.conv1d_phased`, one undilated conv over the row's d phases, which cuDNN runs
-on the tensor cores and not in its CUDA-core implicit GEMM. Weight norm is folded (a
-plain `w`). The transposed convs' taps are stored as `layers` stores them, a
-correlation kernel [k, C_in, C_out]: PyTorch's `ConvTranspose1d` weight is their
-reverse. Between two convs the activations lie as [B, C, T] (what `conv1d` returns),
-which the kernel reads and writes without a copy.
+activation lies as [B, T, C] contiguous from `conv_pre` to `conv_post` (channels-last):
+each conv runs on `layers`' channels-last path (`conv1d_nwc`, `conv1d_transpose_nwc`,
+its weight cast and laid out once as cuDNN's channels-last filter), so cuDNN runs its
+NHWC tensor-core kernels with no layout conversion at either end, and the activation
+kernel reads and writes the same layout. The dilated AMP convs that `phase_split`
+picks (768, 384 and 192 channels with (k - 1)·d >= 30, nine a forward at the
+published widths) run as `layers.conv1d_phased`, one undilated conv over the row's d
+phases, which cuDNN runs on the tensor cores (given them dilated, it runs a CUDA-core
+kernel). Weight norm is folded (a plain `w`). The transposed convs' taps are stored
+as `layers` stores them, a correlation kernel [k, C_in, C_out]: PyTorch's
+`ConvTranspose1d` weight is their reverse.
+
+Biases are added where a read already happens: the first conv of each AMP pair
+leaves its bias to the activation after it, which adds it as it loads; the
+transposed conv and each pair's second conv leave theirs in an offset that the
+stage's residual streams carry (`_offsets`), which each first activation adds as it
+loads and the mean of the AMP blocks adds once. So the only passes over an
+activation besides the convs and the activations are the residual sums and the mean.
 
 Tree: `conv_pre`, `ups[i]`, `amps[i][j]` (`convs1[d]`, `convs2[d]`), `acts[i][j]`
 (`a1[d]`, `a2[d]`, each `{alpha, beta}`), `act_post`, `conv_post` (`w` alone).
@@ -97,6 +106,13 @@ def activations(cfg: ModelConfig) -> int:
     return 2 * len(cfg.upsample_rates) * sum(len(rd) for rd in cfg.resblock_dilations) + 1
 
 
+def convs(cfg: ModelConfig) -> int:
+    """Convs a forward runs (each one `conv_nwc` count): `conv_pre`, the transposed
+    convs, two per dilation of every AMP block of every stage, `conv_post`; 116 at the
+    published widths."""
+    return 2 + len(cfg.upsample_rates) * (1 + 2 * sum(len(rd) for rd in cfg.resblock_dilations))
+
+
 def reach_frames(cfg: ModelConfig) -> int:
     """Mel frames each side that one output sample can depend on (`vocoder.reach_frames`
     with the activation's 5 samples): 39 at the published widths."""
@@ -109,16 +125,17 @@ def forward(params: Mapping, mel: torch.Tensor, cfg: ModelConfig, dtype=torch.fl
     return graphs.run("bigvgan.forward", lambda: _forward(params, mel, cfg, dtype), params, (mel,), id(cfg), dtype)
 
 
-def _act(p: Mapping, x: torch.Tensor) -> torch.Tensor:
-    alpha, inv_beta = layers.cached(p, ("snake_aa", x.device), lambda: snake_aa.constants(p["alpha"], p["beta"]))
-    return snake_aa.snake_aa(x, alpha, inv_beta)
+def _act(p: Mapping, x: torch.Tensor, bias=None) -> torch.Tensor:
+    alpha, inv_beta = layers.cached_frozen(p, ("snake_aa", x.device), lambda: snake_aa.constants(p["alpha"], p["beta"]))
+    return snake_aa.snake_aa(x, alpha, inv_beta, bias)
 
 
 def phase_split(channels: int, kernel: int, dilation: int) -> bool:
     """Whether an AMP block runs its dilated conv as `layers.conv1d_phased`: where
-    cuDNN, given the dilated conv, runs it as its CUDA-core implicit GEMM, and the
-    undilated conv over the d phases on the tensor cores pays for the two copies
-    (the per-conv table in PERF.md §6: B=16, 448 frames, bf16, H100)."""
+    cuDNN, given the dilated conv, runs it in a CUDA-core kernel (channels-last: a
+    direct grouped conv, 35-755 ms a call at B=16, 448 frames), and the undilated conv
+    over the d phases on the tensor cores pays for the two copies (the per-conv
+    readings in PERF.md §6: bf16, H100)."""
     return channels >= 192 and (kernel - 1) * dilation >= 30
 
 
@@ -129,29 +146,51 @@ def phased_convs(cfg: ModelConfig) -> list:
             if phase_split(c, k, d)]
 
 
-def _amp_block(p: Mapping, acts: Mapping, x: torch.Tensor, dilations: Sequence[int], dtype) -> torch.Tensor:
-    for c1, c2, a1, a2, d in zip(p["convs1"], p["convs2"], acts["a1"], acts["a2"], dilations):
-        a = _act(a1, x)
+def _offsets(up: Mapping, amps: Sequence, dtype):
+    """A stage's residual streams hold x̃ = x - offset, per channel: the transposed
+    conv's bias and, past each dilation, the bias of its pair's second conv. Returns
+    (for each AMP block the offset its stream carries before each dilation, f32 [C];
+    the offset of the blocks' mean, in `dtype`), built once per (dtype, device) on
+    the stage's node."""
+    def build():
+        blocks, total = [], 0.0
+        for block in amps:
+            off, steps = up["b"].float(), []
+            for c2 in block["convs2"]:
+                steps.append(off)
+                off = off + c2["b"].float()
+            blocks.append(steps)
+            total = total + off
+        return blocks, (total / len(amps)).to(dtype)
+
+    return layers.cached_frozen(amps, ("bigvgan_offsets", dtype, up["b"].device), build)
+
+
+def _amp_block(p: Mapping, acts: Mapping, x: torch.Tensor, dilations: Sequence[int], offsets, dtype) -> torch.Tensor:
+    """One AMP block on x̃, the stage's stream less `offsets[0]`; returns its output
+    less the offset after the last dilation."""
+    for c1, c2, a1, a2, d, off in zip(p["convs1"], p["convs2"], acts["a1"], acts["a2"], dilations, offsets):
+        a = _act(a1, x, off)
         if phase_split(x.shape[2], c1["w"].shape[0], d):
             xt = layers.conv1d_phased(c1, a, d, dtype)
         else:
-            xt = layers.conv1d(c1, a, dilation=d, dtype=dtype)
-        xt = layers.conv1d(c2, _act(a2, xt), dtype=dtype)
+            xt = layers.conv1d_nwc(c1, a, dtype, dilation=d, bias=False)
+        xt = layers.conv1d_nwc(c2, _act(a2, xt, c1["b"]), dtype, bias=False)
         x = xt + x
     return x
 
 
 def _forward(params: Mapping, mel: torch.Tensor, cfg: ModelConfig, dtype) -> torch.Tensor:
-    x = layers.conv1d(params["conv_pre"], mel.to(dtype), dtype=dtype)
+    x = layers.conv1d_nwc(params["conv_pre"], mel, dtype)
     for i, (up, amps, acts, rate) in enumerate(zip(params["ups"], params["amps"], params["acts"], cfg.upsample_rates)):
         with prof.stage(f"bigvgan.up{i}"):
-            x = layers.conv1d_transpose(up, x, rate, dtype=dtype)
+            x = layers.conv1d_transpose_nwc(up, x, rate, dtype)
         with prof.stage(f"bigvgan.amp{i}"):
+            offsets, mean_offset = _offsets(up, amps, dtype)
             acc = None
-            for block, act, rd in zip(amps, acts, cfg.resblock_dilations):
-                y = _amp_block(block, act, x, rd, dtype)
+            for block, act, rd, offs in zip(amps, acts, cfg.resblock_dilations, offsets):
+                y = _amp_block(block, act, x, rd, offs, dtype)
                 acc = y if acc is None else acc + y
-            x = acc / float(len(amps))
-    x = _act(params["act_post"], x)
-    x = layers._conv1d(params["conv_post"]["w"], x, 1, dtype, 1, 1)
+            x = torch.add(mean_offset, acc, alpha=1.0 / len(amps))
+    x = layers.conv1d_nwc(params["conv_post"], _act(params["act_post"], x), dtype)
     return torch.clamp(x[..., 0].float(), -1.0, 1.0)

@@ -33,6 +33,7 @@ from ..parallel import tp
 
 NEG = -1e9
 _PHASED = ops.counter("conv_phased")
+_NWC = ops.counter("conv_nwc")
 
 
 class Tree(nn.Module):
@@ -205,42 +206,113 @@ def _conv1d(w: torch.Tensor, x: torch.Tensor, stride: int, dtype, groups: int, d
     return y.transpose(1, 2)
 
 
+def _nwc_weights(p: Mapping, dtype, transposed: bool = False):
+    """(weight, bias) of a conv for the channels-last path, built once per (dtype,
+    device) and kept on the parameter node (`cached_frozen`; `clear_derived` drops them):
+    the weight cast to `dtype` and laid out as cuDNN's channels-last filter, C_in
+    fastest for a conv ([C_out, C_in, 1, k] lying as [C_out, 1, k, C_in]), C_out
+    fastest for a transposed conv ([C_in, C_out, 1, k] lying as [C_in, 1, k, C_out],
+    its taps reversed as `conv1d_transpose` reverses them); the bias cast, or None
+    where the node has none. A conv's output channels are zero-padded to a multiple
+    of 8: cuDNN's NHWC kernels take channels in eights, and a 1-channel output (the
+    last conv of a vocoder) came back through its nhwcToNchw conversion."""
+    w = p["w"]
+
+    def build():
+        cast = w.to(dtype)
+        if transposed:
+            rows = cast.flip(0).permute(1, 0, 2)  # [C_in, k, C_out]
+        else:
+            rows = F.pad(cast.permute(2, 0, 1), (0, 0, 0, 0, 0, -w.shape[2] % 8))  # [C_out + pad, k, C_in]
+        b = getattr(p, "b", None) if isinstance(p, nn.Module) else p.get("b")
+        if b is not None and not transposed:
+            b = F.pad(b, (0, -w.shape[2] % 8))
+        return rows.contiguous().unsqueeze(1).permute(0, 3, 1, 2), None if b is None else b.to(dtype)
+
+    return cached_frozen(p, ("conv_nwc", dtype, w.device, transposed), build)
+
+
+def _as_nchw(x: torch.Tensor) -> torch.Tensor:
+    """x [B, T, C] contiguous seen as cuDNN's NCHW [B, C, 1, T]: strides (T·C, 1,
+    T·C, C), channels-last, so cuDNN reads it as it lies."""
+    return x.contiguous().transpose(1, 2).unsqueeze(2)
+
+
+def _from_nchw(y: torch.Tensor) -> torch.Tensor:
+    """A channels-last conv result [B, C, 1, T] as [B, T, C] (contiguous: a view)."""
+    return y.squeeze(2).transpose(1, 2).contiguous()
+
+
+def conv1d_nwc(p: Mapping, x: torch.Tensor, dtype=torch.float32, dilation: int = 1,
+               bias: bool = True) -> torch.Tensor:
+    """`conv1d(p, x, dilation=dilation, dtype=dtype)` (stride 1, ungrouped, an
+    unsharded weight) with every activation channels-last: x [B, T, C_in] is read
+    as it lies, the weight is `_nwc_weights`' and the result [B, T, C_out] comes
+    back contiguous (C_out a multiple of 8; else a view of the padded channels), so
+    cuDNN runs its NHWC kernels with no layout conversion at either end.
+    `bias=False` leaves the bias to the caller (the activation after the conv adds
+    it as it loads). Each call adds one to `ops.counter("conv_nwc")`."""
+    w, b = _nwc_weights(p, dtype)
+    k = w.shape[3]
+    total = (k - 1) * dilation
+    lo = total // 2
+    x = x.to(dtype)
+    if total != 2 * lo:  # an even kernel at an odd dilation: SAME pads one more on the right
+        x = F.pad(x, (0, 0, lo, total - lo))
+        lo = 0
+    y = F.conv2d(_as_nchw(x), w, b if bias else None, padding=(0, lo), dilation=(1, dilation))
+    _NWC.count += 1
+    return _from_nchw(y)[..., : p["w"].shape[2]]
+
+
+def conv1d_transpose_nwc(p: Mapping, x: torch.Tensor, stride: int, dtype=torch.float32) -> torch.Tensor:
+    """`conv1d_transpose(p, x, stride, dtype)` less its bias (left to the caller),
+    channels-last as `conv1d_nwc`: x [B, T, C_in] → [B, T · stride, C_out]
+    contiguous. Counted in `conv_nwc`."""
+    w, _ = _nwc_weights(p, dtype, transposed=True)
+    pad = (w.shape[3] - stride) // 2
+    y = F.conv_transpose2d(_as_nchw(x.to(dtype)), w, stride=(1, stride), padding=(0, pad))
+    _NWC.count += 1
+    return _from_nchw(y[..., : x.shape[1] * stride])
+
+
 def conv1d_phased(p: Mapping, x: torch.Tensor, dilation: int, dtype=torch.float32) -> torch.Tensor:
-    """`conv1d(p, x, dilation=dilation, dtype=dtype)` for an odd kernel and an
-    unsharded weight, computed as one undilated conv over the row's d = `dilation`
-    interleaved phases: output t = u·d + r is Σ_j w_j · x_pad[(u + j)·d + r], so the
-    same k taps, undilated over phase r of the padded row, give the outputs of phase
-    r. The same products and sums, in the shape cuDNN runs on the tensor cores
-    where, given some wide dilated convs, it picks a CUDA-core implicit GEMM.
+    """`conv1d_nwc(p, x, dtype, dilation, bias=False)` for an odd kernel, computed as
+    one undilated conv over the row's d = `dilation` interleaved phases: output t =
+    u·d + r is Σ_j w_j · x_pad[(u + j)·d + r], so the same k taps, undilated over
+    phase r of the padded row, give the outputs of phase r. The same products and
+    sums, in the shape cuDNN runs on the tensor cores where, given some wide dilated
+    convs, it picks a CUDA-core kernel.
 
     The padding is `_conv1d`'s SAME rule at stride 1, (k - 1)·d // 2 on the left,
-    which for an odd k is a = (k - 1) / 2 whole phase rows. x is read once into the
-    phases [B·d, C, a + ceil(T / d) + a], only the pads zeroed, and the conv's result
-    written once, bias added, as [B, C_out, T]: the layout `conv1d` returns. Each
-    call adds one to `ops.counter("conv_phased")` (a cuDNN conv, no hand kernel)."""
-    w = p["w"]
-    k, c_out, d = w.shape[0], w.shape[2], dilation
-    if k % 2 == 0 or tp.split_dim(w) is not None:
+    which for an odd k is a = (k - 1) / 2 whole phase rows. x [B, T, C] is read once
+    into the phases, channels-last [B·d, a + ceil(T / d) + a, C], only the pads
+    zeroed, and the conv's result written once as [B, T, C_out] contiguous; the bias
+    is left to the caller. Each call adds one to `ops.counter("conv_phased")` (a
+    cuDNN conv, no hand kernel) and one to `conv_nwc`."""
+    w, _ = _nwc_weights(p, dtype)
+    k, c_out, d = w.shape[3], p["w"].shape[2], dilation
+    if k % 2 == 0 or tp.split_dim(p["w"]) is not None:
         raise ValueError(f"the phase split takes an odd kernel of an unsharded weight (k={k})")
-    xt = x.to(dtype).transpose(1, 2)  # [B, C, T]
-    b, c, t = xt.shape
+    x = x.to(dtype)
+    n, t, c = x.shape
     a = (k - 1) // 2
     q, rem = divmod(t, d)  # whole phase rows of x, and the samples of its last, partial one
     v = q + (rem > 0)  # outputs a phase
-    rows = xt.new_empty((b, d, c, v + 2 * a))
-    rows[..., :a].zero_()
-    rows[..., a + q:].zero_()
-    rows[..., a : a + q] = xt[..., : q * d].unflatten(2, (q, d)).permute(0, 3, 1, 2)
+    rows = x.new_empty((n, d, v + 2 * a, c))
+    rows[:, :, :a].zero_()
+    rows[:, :, a + q:].zero_()
+    rows[:, :, a : a + q] = x[:, : q * d].unflatten(1, (q, d)).transpose(1, 2)
     if rem:
-        rows[:, :rem, :, a + q] = xt[..., q * d :].transpose(1, 2)
-    y = F.conv1d(rows.view(b * d, c, -1), w.to(dtype).permute(2, 1, 0)).view(b, d, c_out, v)
-    bias = p["b"].to(dtype)
-    out = y.new_empty((b, c_out, t))
-    torch.add(y[..., :q].permute(0, 2, 3, 1), bias[:, None, None], out=out[..., : q * d].view(b, c_out, q, d))
+        rows[:, :rem, a + q] = x[:, q * d :]
+    y = _from_nchw(F.conv2d(_as_nchw(rows.view(n * d, -1, c)), w)).view(n, d, v, -1)[..., :c_out]
+    out = y.new_empty((n, t, c_out))
+    out[:, : q * d].unflatten(1, (q, d)).copy_(y[:, :, :q].transpose(1, 2))
     if rem:
-        torch.add(y[:, :rem, :, q].transpose(1, 2), bias[:, None], out=out[..., q * d :])
+        out[:, q * d :] = y[:, :rem, q]
     _PHASED.count += 1
-    return out.transpose(1, 2)
+    _NWC.count += 1
+    return out
 
 
 def conv1d_transpose(p: Mapping, x: torch.Tensor, stride: int, dtype=torch.float32) -> torch.Tensor:
@@ -442,6 +514,16 @@ def cached(node, key, build):
     if key not in memo:
         memo[key] = build()
     return memo[key]
+
+
+def cached_frozen(node, key, build):
+    """`cached` in a pass that takes no gradient of `node`'s parameters, and built
+    afresh in one that does, so that it stays on the autograd graph: a memo built
+    under `no_grad` (a critic's step runs the generator so) would cut the
+    generator's own step off from its weights."""
+    if torch.is_grad_enabled() and isinstance(node, nn.Module) and any(v.requires_grad for v in node.parameters()):
+        return build()
+    return cached(node, key, build)
 
 
 def clear_derived(module: nn.Module) -> None:

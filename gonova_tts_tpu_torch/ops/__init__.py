@@ -15,9 +15,10 @@ planner and plain version: a part of those two kernels, not a fifth.
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches the kernel (built on first use by `_build.py`) or raises. Every launch
 adds one to the wrapper's `LaunchCounter`, which is how a run shows that the
-serving path went through the kernels. One counter is no hand kernel's:
-`conv_phased` counts `models/layers.conv1d_phased`'s calls, a cuDNN conv over the
-phases of a dilated conv's row.
+serving path went through the kernels. Two counters are no hand kernel's: they
+count cuDNN convs of BigVGAN-v2's channels-last path, `conv_nwc` each of them
+(`models/layers.conv1d_nwc`, `conv1d_transpose_nwc`, `conv1d_phased`) and
+`conv_phased` those over the phases of a dilated conv's row.
 """
 
 from __future__ import annotations

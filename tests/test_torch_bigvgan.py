@@ -20,7 +20,8 @@ from torch.profiler import ProfilerActivity, profile
 from gonova_tts_tpu.config import ModelConfig as JModelConfig
 from gonova_tts_tpu_torch.config import Config, EngineConfig, ModelConfig
 from gonova_tts_tpu_torch.engine import TTSEngine
-from gonova_tts_tpu_torch.models import bigvgan, params, registry, tts
+from gonova_tts_tpu_torch import ops
+from gonova_tts_tpu_torch.models import bigvgan, layers, params, registry, tts
 from gonova_tts_tpu_torch.ops import snake_aa
 from gonova_tts_tpu_torch.service.memory_socket import MemorySocket
 from gonova_tts_tpu_torch.text import pick_bucket, text_to_ids
@@ -41,6 +42,10 @@ SERVED = dict(
 ENGINE = dict(token_buckets=[32, 64], batch_buckets=[1, 4], max_batch=4, batch_window_ms=5.0,
               stream_chunk_frames=24, stream_context_frames=12, warmup_shapes=[[1, 32]], vocode_frame_buckets=[])
 TEXT = "The quiet river ran past the old mill."
+# The published stage structure (rates, kernels, AMP blocks) at 512 channels: every
+# stage's width (256 ... 8) a multiple of 8, as the published ones (768 ... 24) are.
+NARROW = dict(upsample_initial_channel=512, upsample_rates=[4, 4, 2, 2, 2, 2], upsample_kernels=[8, 8, 4, 4, 4, 4],
+              resblock_kernels=[3, 7, 11], resblock_dilations=[[1, 3, 5]] * 3, vocoder_family="bigvgan", n_mels=20)
 PUBLISHED = dict(upsample_initial_channel=1536, upsample_rates=[4, 4, 2, 2, 2, 2],
                  upsample_kernels=[8, 8, 4, 4, 4, 4], resblock_kernels=[3, 7, 11],
                  resblock_dilations=[[1, 3, 5]] * 3, vocoder_family="bigvgan", n_mels=100, speaker_n_mels=80)
@@ -121,6 +126,16 @@ def test_activation_reads_either_layout_and_keeps_the_dtype():
     assert snake_aa.snake_aa(x.bfloat16(), *consts).dtype == torch.bfloat16
 
 
+def test_the_activations_bias_is_added_as_the_input_loads():
+    """`bias` (the conv before it leaves its bias to the activation) is x + bias,
+    summed in f32 before the upsampler: equal to adding it first, bit for bit."""
+    g = torch.Generator().manual_seed(6)
+    x = torch.randn((2, 23, 5), generator=g)
+    bias = torch.randn(5, generator=g)
+    consts = snake_aa.constants(torch.randn(5, generator=g), torch.randn(5, generator=g))
+    assert torch.equal(snake_aa.snake_aa(x, *consts, bias), snake_aa.snake_aa(x + bias, *consts))
+
+
 def test_the_published_configuration_runs_109_activations_and_112_4m_parameters():
     """Counted without building the 112 M weights: conv_pre 1.08 M, ups 12.2 M, AMP
     convs 126 * sum(C^2) = 99.1 M plus their biases, alpha and beta 2 a channel an
@@ -144,6 +159,155 @@ def test_a_forward_calls_the_activation_once_per_activation(tiny, monkeypatch):
     monkeypatch.setattr(snake_aa, "snake_aa", lambda x, *a: calls.append(x.shape) or real(x, *a))
     m(torch.zeros((1, 6, 20)))
     assert len(calls) == bigvgan.activations(cfg) == 2 * 2 * 4 + 1
+
+
+# ---------------------------------------------------------------- the channels-last convs
+
+# Even and odd lengths; below, at and above one phase row of dilations 3 and 5.
+CONV_LENGTHS = [2, 3, 16, 37]
+
+
+def _conv_node(seed: int, k: int, cin: int, cout: int, bias: bool = True):
+    g = torch.Generator().manual_seed(seed)
+    w = torch.randn((k, cin, cout), generator=g)
+    return layers.leaf(w=w, b=torch.randn(cout, generator=g)) if bias else layers.leaf(w=w)
+
+
+def _close(got, want, contiguous=True):
+    assert got.shape == want.shape and got.is_contiguous() == contiguous
+    assert float((got - want).abs().max()) <= 1e-5 * max(1.0, float(want.abs().max()))
+
+
+@pytest.mark.parametrize("t", CONV_LENGTHS)
+@pytest.mark.parametrize("k,d", [(k, d) for k in (3, 7, 11) for d in (1, 3, 5)])
+def test_channels_last_convs_equal_the_channels_first_conv_in_f32(k, d, t):
+    """Every (k, d) of the published AMP blocks: `conv1d_nwc` gives `layers.conv1d`'s
+    SAME dilated conv, [B, T, C_out] contiguous, within 1e-5 of the output's scale
+    (f32 summation order); with `bias=False`, and `conv1d_phased`, the same less the
+    bias. Each call counts once in `conv_nwc`, the phased one also in `conv_phased`."""
+    p = _conv_node(100 * k + 10 * d + t, k, 6, 8)
+    x = torch.randn((2, t, 6), generator=torch.Generator().manual_seed(t))
+    want = layers.conv1d(p, x, dilation=d)
+    before = ops.launch_counts()
+    _close(layers.conv1d_nwc(p, x, dilation=d), want)
+    for got in (layers.conv1d_nwc(p, x, dilation=d, bias=False), layers.conv1d_phased(p, x, d)):
+        _close(got + p["b"], want)
+    after = ops.launch_counts()
+    assert after["conv_nwc"] - before["conv_nwc"] == 3 and after["conv_phased"] - before["conv_phased"] == 1
+
+
+@pytest.mark.parametrize("t", CONV_LENGTHS)
+@pytest.mark.parametrize("k,rate", [(8, 4), (4, 2)])
+def test_channels_last_transposed_conv_equals_conv1d_transpose_in_f32(k, rate, t):
+    """Both transposed rates of the published generator: `conv1d_transpose_nwc` gives
+    `layers.conv1d_transpose` (taps reversed, output T * rate) less the bias,
+    contiguous."""
+    p = _conv_node(10 * k + t, k, 6, 8)
+    x = torch.randn((2, t, 6), generator=torch.Generator().manual_seed(t))
+    _close(layers.conv1d_transpose_nwc(p, x, rate) + p["b"], layers.conv1d_transpose(p, x, rate))
+
+
+@pytest.mark.parametrize("k,d", [(7, 1), (4, 1), (4, 3), (8, 5)])
+def test_channels_last_conv_pads_as_same_with_and_without_a_bias_node(k, d):
+    """`conv_pre` / `conv_post` (k = 7, `conv_post` 1 channel out with no bias) and
+    even kernels, whose SAME padding at an odd span is one more on the right:
+    `layers.conv1d`'s. Output channels short of a multiple of 8 run padded with zero
+    filters and come back as a view of the first C_out (the phase split too)."""
+    x = torch.randn((2, 13, 6), generator=torch.Generator().manual_seed(k * d))
+    p = _conv_node(k * d, k, 6, 16)
+    _close(layers.conv1d_nwc(p, x, dilation=d), layers.conv1d(p, x, dilation=d))
+    p = _conv_node(k * d, k, 6, 3)
+    _close(layers.conv1d_nwc(p, x, dilation=d), layers.conv1d(p, x, dilation=d), contiguous=False)
+    assert layers._nwc_weights(p, torch.float32)[0].shape == (8, 6, 1, k)
+    if k % 2:
+        _close(layers.conv1d_phased(p, x, d) + p["b"], layers.conv1d(p, x, dilation=d))
+    q = _conv_node(k * d, k, 6, 1, bias=False)
+    _close(layers.conv1d_nwc(q, x, dilation=d), layers._conv1d(q["w"], x, 1, torch.float32, 1, d), contiguous=False)
+
+
+def test_every_activation_of_a_forward_reads_channels_last(monkeypatch):
+    """The published stage structure at 512 channels, every dilated conv phase-split:
+    each of the 109 activations receives x [B, T, C] contiguous, from the first
+    stage's [2, 3 · 4, 256] on; the forward counts 116 convs in `conv_nwc` (36 of them
+    also in `conv_phased`)."""
+    cfg = ModelConfig(**NARROW)
+    m = seeded(cfg)
+    seen = []
+    real = snake_aa.snake_aa
+
+    def checked(x, *args):
+        assert x.is_contiguous(), x.stride()
+        seen.append(tuple(x.shape))
+        return real(x, *args)
+
+    monkeypatch.setattr(snake_aa, "snake_aa", checked)
+    monkeypatch.setattr(bigvgan, "phase_split", lambda c, k, d: d > 1)
+    before = ops.launch_counts()
+    wav = m(torch.randn((2, 3, 20), generator=torch.Generator().manual_seed(0)))
+    after = ops.launch_counts()
+    assert wav.shape == (2, 3 * 256) and bool(torch.isfinite(wav).all())
+    assert len(seen) == bigvgan.activations(cfg) == 109
+    assert seen[0] == (2, 12, 256) and seen[-1] == (2, 768, 8)
+    assert after["conv_nwc"] - before["conv_nwc"] == bigvgan.convs(cfg) == 116
+    assert after["conv_phased"] - before["conv_phased"] == 6 * 3 * 2
+
+
+def test_packed_conv_weights_are_built_once_per_dtype_and_rebuilt_after_clear_derived():
+    """A forward that takes no gradient (serving) packs each conv's weight once per
+    (dtype, device) on its node (the cast channels-last filter and the cast bias) and
+    later forwards reuse it: a weight changed in place serves stale until
+    `clear_derived`, after which the forward rebuilds it and equals the reference at
+    the new weights."""
+    cfg = ModelConfig(**TINY)
+    m = seeded(cfg, 7)
+    mel = torch.randn((2, 9, 20), generator=torch.Generator().manual_seed(1))
+    conv, up = m.conv_pre, m.ups[0]
+    key = ("conv_nwc", torch.float32, conv.w.device, False)
+    with torch.no_grad():
+        first = m(mel)
+        packed = conv.__dict__["_derived"][key]
+        m(mel)
+        m(mel, torch.bfloat16)
+        memo = conv.__dict__["_derived"]
+        assert memo[key] is packed
+        assert {k[1] for k in memo if k[0] == "conv_nwc"} == {torch.float32, torch.bfloat16}
+        w, b = packed
+        k, cin, cout = conv.w.shape
+        assert w.shape == (cout, cin, 1, k) and w.is_contiguous(memory_format=torch.channels_last)
+        assert torch.equal(w[:, :, 0], conv.w.permute(2, 1, 0)) and torch.equal(b, conv.b)
+        wt, _ = up.__dict__["_derived"][("conv_nwc", torch.float32, up.w.device, True)]
+        assert wt.shape == (up.w.shape[1], up.w.shape[2], 1, up.w.shape[0])
+        assert wt.is_contiguous(memory_format=torch.channels_last)
+        assert torch.equal(wt[:, :, 0], up.w.flip(0).permute(1, 2, 0))
+        conv.w.mul_(3.0)
+        assert torch.equal(m(mel), first)
+        layers.clear_derived(m)
+        again = m(mel)
+        assert conv.__dict__["_derived"][key] is not packed
+        want = ref.BigVGAN(tree_of(m), cfg.upsample_rates, cfg.resblock_dilations)(mel)
+        assert float((again - want).abs().max()) <= 1e-5 and float((again - first).abs().max()) > 1e-4
+
+
+def test_a_forward_that_takes_gradients_reaches_every_weight_after_a_packed_one():
+    """A critic's step runs the generator under `no_grad`, which packs its weights; the
+    generator's own step after it (its parameters trainable, as the trainer sets
+    them) takes gradients, so it packs afresh and nothing is
+    memoized: every parameter, conv weights, biases and log-scales, gets a gradient,
+    the same as from a generator that never served a packed forward."""
+    cfg = ModelConfig(**TINY)
+    m, fresh = seeded(cfg, 3).requires_grad_(True), seeded(cfg, 3).requires_grad_(True)
+    mel = torch.randn((2, 9, 20), generator=torch.Generator().manual_seed(2))
+    with torch.no_grad():
+        m(mel)
+    assert "_derived" in m.conv_pre.__dict__
+    memo = dict(m.conv_pre.__dict__["_derived"])
+    for gen in (m, fresh):
+        (gen(mel) ** 2).sum().backward()
+    now = m.conv_pre.__dict__["_derived"]
+    assert now.keys() == memo.keys() and all(now[k] is memo[k] for k in memo)
+    for (name, p), q in zip(m.named_parameters(), fresh.parameters()):
+        assert p.grad is not None and float(p.grad.abs().max()) > 0, name
+        torch.testing.assert_close(p.grad, q.grad, rtol=1e-5, atol=1e-6)
 
 
 # ---------------------------------------------------------------- the generator

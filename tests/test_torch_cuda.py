@@ -764,54 +764,84 @@ BIGVGAN_NARROW = dict(vocoder_family="bigvgan", upsample_initial_channel=128, up
                       resblock_dilations=[[1, 3, 5]] * 3)
 
 
-def _snake_inputs(b, t, c, dtype, seed, layout="rows"):
+def _snake_inputs(b, t, c, dtype, seed, layout="channels_last"):
+    """x [B, T, C] (contiguous, or lying as [B, C, T] with `layout="rows"`), the
+    activation's constants and a conv bias."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     x = torch.randn((b, c, t) if layout == "rows" else (b, t, c), generator=g, device="cuda") * 2.0
     x = (x.transpose(1, 2) if layout == "rows" else x).to(dtype)
     log_a, log_b = (torch.randn(c, generator=g, device="cuda") * 0.3 for _ in range(2))
-    return x, snake_op.constants(log_a, log_b)
+    return x, snake_op.constants(log_a, log_b), torch.randn(c, generator=g, device="cuda") * 0.3
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("b", [1, 16])
 @pytest.mark.parametrize("c,per_frame", SNAKE_STAGES)
 def test_snake_aa_kernel_matches_its_twin_at_the_published_stages(setup, b, c, per_frame):
-    """bf16 in and out at 448 frames, the math in f32 on both sides (the kernel's sine
-    the hardware's): where the two f32 results straddle a bf16 rounding point they
-    differ by one bf16 step, so |kernel - twin| <= 2^-7 |twin| + 1e-4, and at least
-    99% of the samples are equal. One launch a call."""
+    """bf16 in and out at 448 frames, x [B, T, C] contiguous (B = 16 with a conv bias
+    added as it loads), the math in f32 on both sides (the kernel's sine the
+    hardware's): where the two f32 results straddle a bf16 rounding point they differ
+    by one bf16 step, so |kernel - twin| <= 2^-7 |twin| + 1e-4, and at least 99% of
+    the samples are equal. One launch a call; the result [B, T, C] contiguous."""
     t = 448 * per_frame
-    x, consts = _snake_inputs(b, t, c, torch.bfloat16, b * 1000 + c)
+    x, consts, bias = _snake_inputs(b, t, c, torch.bfloat16, b * 1000 + c)
+    bias = bias if b == 16 else None
     before = ops.launch_counts().get("snake_aa", 0)
-    ours = snake_op.snake_aa(x, *consts)
-    plain = snake_op.snake_aa_plain(x, *consts)
+    ours = snake_op.snake_aa(x, *consts, bias)
+    plain = snake_op.snake_aa_plain(x, *consts, bias)
     torch.cuda.synchronize()
     assert ops.launch_counts()["snake_aa"] == before + 1
-    assert ours.dtype == torch.bfloat16 and ours.shape == x.shape
+    assert ours.dtype == torch.bfloat16 and ours.shape == x.shape and ours.is_contiguous()
     diff = (ours.float() - plain.float()).abs()
     assert bool((diff <= 2.0 ** -7 * plain.float().abs() + 1e-4).all())
     assert float((diff == 0).float().mean()) >= 0.99
 
 
+# Lengths at both replicate pads (1, 2, 3, 5, 13), at each built segment length's edges
+# (8, 16 and 32, ± 1), and past them: the first interior segment starts at T = 2 SEG + 5.
+SNAKE_EDGE_LENGTHS = [1, 2, 3, 5, 7, 8, 9, 13, 15, 16, 17, 21, 31, 32, 33, 37, 69, 1300]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("t", [1, 2, 5, 13, 511, 512, 513, 1300])
-@pytest.mark.parametrize("c", [3, 24])
+@pytest.mark.parametrize("t", SNAKE_EDGE_LENGTHS)
+@pytest.mark.parametrize("c", [3, 24, 48])
 @pytest.mark.parametrize("layout", ["rows", "channels_last"])
 def test_snake_aa_kernel_edges_in_f32(setup, t, c, layout):
-    """f32 at the lengths where both replicate pads reach every output (T = 1, 2, 5,
-    13), at a warp segment's edges (512) and at odd channel counts, from either layout:
-    within 2e-6 of the output's scale (f32 summation order, the library sine)."""
-    x, consts = _snake_inputs(3, t, c, torch.float32, t * 10 + c, layout)
-    ours = snake_op.snake_aa(x, *consts)
-    plain = snake_op.snake_aa_plain(x, *consts)
-    torch.cuda.synchronize()
-    assert ours.shape == x.shape and ours.dtype == torch.float32
-    assert float((ours - plain).abs().max()) <= 2e-6 * max(1.0, float(plain.abs().max()))
+    """f32 at the lengths where both replicate pads reach every output, at the
+    segment edges and at channel counts that take fewer channels a lane (3) or none
+    past the plan's (24, 48); x lying [B, C, T] is copied to [B, T, C] first: within
+    2e-6 of the output's scale (f32 summation order, the library sine)."""
+    x, consts, bias = _snake_inputs(3, t, c, torch.float32, t * 10 + c, layout)
+    for b in (None, bias):
+        ours = snake_op.snake_aa(x, *consts, b)
+        plain = snake_op.snake_aa_plain(x, *consts, b)
+        torch.cuda.synchronize()
+        assert ours.shape == x.shape and ours.dtype == torch.float32 and ours.is_contiguous()
+        assert float((ours - plain).abs().max()) <= 2e-6 * max(1.0, float(plain.abs().max()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("plan", snake_op.PLANS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_snake_aa_every_built_plan_matches_its_twin(setup, plan, dtype):
+    """Every (channels a lane, outputs a lane) the kernel builds, at each edge length
+    and 48 channels, with a bias: f32 within 2e-6 of the scale, bf16 within a bf16
+    step (2^-7 |twin| + 1e-4)."""
+    for t in SNAKE_EDGE_LENGTHS:
+        x, consts, bias = _snake_inputs(2, t, 48, dtype, t)
+        ours = snake_op._launch(x, *consts, bias, plan=plan).float()
+        plain = snake_op.snake_aa_plain(x, *consts, bias).float()
+        torch.cuda.synchronize()
+        diff = (ours - plain).abs()
+        if dtype == torch.float32:
+            assert float(diff.max()) <= 2e-6 * max(1.0, float(plain.abs().max())), (plan, t)
+        else:
+            assert bool((diff <= 2.0 ** -7 * plain.abs() + 1e-4).all()), (plan, t)
 
 
 @pytest.mark.gpu
 def test_snake_aa_raises_on_what_the_kernel_does_not_take(setup):
-    x, (alpha, inv_beta) = _snake_inputs(1, 64, 8, torch.float16, 0)
+    x, (alpha, inv_beta), bias = _snake_inputs(1, 64, 8, torch.float16, 0)
     with pytest.raises(ValueError):
         snake_op.snake_aa(x, alpha, inv_beta)
     x = x.float()
@@ -819,6 +849,8 @@ def test_snake_aa_raises_on_what_the_kernel_does_not_take(setup):
         snake_op.snake_aa(x, alpha[:4], inv_beta[:4])
     with pytest.raises(ValueError):
         snake_op.snake_aa(x, alpha.double(), inv_beta)
+    with pytest.raises(ValueError):
+        snake_op.snake_aa(x, alpha, inv_beta, bias.bfloat16())
 
 
 @pytest.mark.gpu
@@ -847,3 +879,41 @@ def test_bigvgan_forward_is_109_launches_eager_and_replayed(setup):
     assert count() - before == 109
     for g, w in zip(got, want):
         assert np.array_equal(g, w)
+
+
+@pytest.mark.gpu
+def test_a_replayed_bigvgan_forward_runs_channels_last_end_to_end(setup):
+    """The published generator (1536 channels, 100 mels), B=4 and 64 frames, bf16,
+    one forward replayed from a CUDA graph under the profiler: no cuDNN layout conversion
+    (`nchwToNhwc`, `nhwcToNchw`) runs, a kernel named `snake_aa_kernel` runs 109
+    times, and the replay counts 116 channels-last convs (`conv_nwc`). An eager
+    forward after the packing casts nothing but the mel in and the waveform out."""
+    from gonova_tts_tpu_torch.models import bigvgan, graphs
+
+    cfg = ModelConfig(**{**BIGVGAN_NARROW, "upsample_initial_channel": 1536, "n_mels": 100})
+    gen = bigvgan.init(torch.Generator().manual_seed(0), cfg).to("cuda")
+    mel = torch.randn((4, 64, cfg.n_mels), device="cuda")
+    gs = graphs.GraphSet(torch.device("cuda"))
+    with torch.inference_mode():
+        with gs.side_stream():
+            bigvgan.forward(gen, mel, cfg, torch.bfloat16)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU]) as eager:
+            bigvgan.forward(gen, mel, cfg, torch.bfloat16)
+        with graphs.active(gs, capture=True):
+            bigvgan.forward(gen, mel, cfg, torch.bfloat16)
+        with graphs.active(gs):
+            want = bigvgan.forward(gen, mel, cfg, torch.bfloat16).clone()
+        before = ops.launch_counts().get("conv_nwc", 0)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            with graphs.active(gs) as active:
+                got = bigvgan.forward(gen, mel, cfg, torch.bfloat16)
+            torch.cuda.synchronize()
+    assert active.replayed == 1 and active.eager == 0
+    assert ops.launch_counts()["conv_nwc"] - before == bigvgan.convs(cfg) == 116
+    kernels = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    assert not [k for k in kernels if "nchwToNhwc" in k or "nhwcToNchw" in k]
+    assert sum("snake_aa_kernel" in k for k in kernels) == 109
+    assert torch.equal(got, want)
+    copies = [e.name for e in eager.events() if e.name in ("aten::_to_copy", "aten::clone")]
+    assert copies.count("aten::_to_copy") == 2 and "aten::clone" not in copies, copies

@@ -126,16 +126,18 @@ def test_transformer_stack_masked(rng):
 @pytest.mark.parametrize("k", [3, 7, 11])
 def test_phase_split_conv_equals_the_dilated_conv(k, d, t, b):
     """`conv1d_phased` is `conv1d(..., dilation=d)` in f32 (the same products, summed
-    per phase), bias included, for T odd, even and shorter than the dilated kernel;
-    x lies as [B, C, T] (what the AMP block's activation returns) and so does the
-    result, and each call counts one `conv_phased`."""
+    per phase) less the bias, which it leaves to the caller, for T odd, even and
+    shorter than the dilated kernel; x lies as [B, T, C] (what the AMP block's
+    activation returns) and the result is [B, T, C_out] contiguous (6 output
+    channels: the filter runs zero-padded to 8), and each call counts one
+    `conv_phased`."""
     from gonova_tts_tpu_torch import ops
 
     g = torch.Generator().manual_seed(1000 * k + 100 * d + 10 * t + b)
     p = {"w": torch.randn((k, 5, 6), generator=g), "b": torch.randn(6, generator=g)}
-    x = torch.randn((b, 5, t), generator=g).transpose(1, 2)
+    x = torch.randn((b, t, 5), generator=g)
     before = ops.launch_counts()["conv_phased"]
     got = tl.conv1d_phased(p, x, d)
     assert ops.launch_counts()["conv_phased"] == before + 1
-    assert got.shape == (b, t, 6) and got.transpose(1, 2).is_contiguous()
-    torch.testing.assert_close(got, tl.conv1d(p, x, dilation=d), rtol=1e-5, atol=2e-5)
+    assert got.shape == (b, t, 6) and got.is_contiguous()
+    torch.testing.assert_close(got + p["b"], tl.conv1d(p, x, dilation=d), rtol=1e-5, atol=2e-5)
