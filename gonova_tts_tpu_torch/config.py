@@ -138,6 +138,26 @@ class ModelConfig(_SectionModel):
 
     compute_dtype: str = "bfloat16"  # the engine's compute dtype; CPU tests use "float32"
 
+    # --- acoustic family ---
+    # "nova": the FastPitch-class model above (phonemes + speaker embedding → mel).
+    # "f5": F5-TTS v1's DiT (models/f5.py): characters of the prompt's transcript and
+    #   the sentence, the prompt's log-mel and Gaussian noise → mel by `f5_nfe_steps`
+    #   Euler steps of guided flow matching, then Vocos over the generated frames.
+    #   A voice is a transcribed prompt (register_voice's `reference_text`), not a
+    #   speaker embedding; `exaggeration` is accepted and ignored; the engine groups
+    #   rows by `engine.f5_frame_buckets` and reads back nothing before the audio.
+    #   It reads the f5_* fields below with the Vocos fields (`n_mels` 100, a polar
+    #   head at Vocos's published widths); the published guidance, sway and prompt
+    #   level are models/f5.py's constants.
+    acoustic_family: Literal["nova", "f5"] = "nova"
+    f5_dim: int = 1024
+    f5_depth: int = 22
+    f5_heads: int = 16
+    f5_ff_mult: int = 2
+    f5_text_dim: int = 512
+    f5_conv_layers: int = 4
+    f5_nfe_steps: int = 32
+
     @property
     def voice_n_mels(self) -> int:
         """Mel bands of the voice path: `speaker_n_mels`, else `n_mels`."""
@@ -151,6 +171,10 @@ class VoiceCloningConfig(_SectionModel):
     cache_dir: str = "./voices"
     max_cached_voices: int = 100
     default_voice_path: Optional[str] = "./voices/default.wav"
+    # The default voice's transcript, which a model that clones from a transcribed
+    # prompt (`model.acoustic_family` "f5") needs; without it such a model has no
+    # default voice and a request without a registered voice is refused.
+    default_voice_text: Optional[str] = None
     min_duration: float = 3.0
     max_duration: float = 10.0
     min_snr: float = 5.0
@@ -269,6 +293,12 @@ class EngineConfig(_SectionModel):
     # warmup_shapes' batch sizes).
     vocode_frame_buckets: List[int] = Field(
         default_factory=lambda: [128, 192, 256, 320, 384, 448]
+    )
+    # The frame buckets of an F5 pass (`model.acoustic_family` "f5"): a row of L
+    # frames (prompt and sentence) runs in the smallest bucket >= L; a warm-up shape
+    # (batch, bucket) names one of these. 4096 is the text positions' limit.
+    f5_frame_buckets: List[int] = Field(
+        default_factory=lambda: [1024, 1152, 1280, 1408, 1536, 1664, 1792, 1920, 2048, 2560, 4096]
     )
 
 

@@ -13,6 +13,10 @@ per sentence, from its queue put to the start of the engine call for its bucket
 group (`pass_id` names the `engine.pass` that served it); `batcher.admission` per
 window, from its first item to the window closed. A sentence's spans take the
 caller's open span (its request's) as parent; the passes take the window's.
+
+A sentence's frontend is `engine.plan` against its voice: its ids and the bucket
+its pass pads it to (the token bucket; under an F5 engine the frame bucket of its
+L), by which a window's sentences are grouped.
 """
 
 from __future__ import annotations
@@ -24,16 +28,18 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
-from ..text import pick_bucket, text_to_ids
+from ..text import text_to_ids
 from ..utils import get_logger
-from .engine import TTSEngine
+from .engine import Plan, TTSEngine
 
 logger = get_logger("gonova.batcher")
 
 
-def _frontend(tracer, text: str) -> List[int]:
+def _frontend(tracer, engine, text: str, speaker) -> Plan:
+    """The engine's plan of a sentence, its token ids by this module's
+    `text_to_ids` (tts_bench's trace times the frontend by wrapping that name)."""
     with tracer.span("frontend.text_to_ids"):
-        return text_to_ids(text)
+        return engine.plan(text, speaker, text_to_ids)
 
 
 @dataclass
@@ -43,12 +49,8 @@ class _Pending:
     exaggeration: float
     future: asyncio.Future = field(repr=False, default=None)
     enqueued_at: int = 0  # perf_counter_ns at the queue put: batcher.wait's start
-    ids: List[int] = field(default_factory=list)  # frontend output, computed once
+    plan: Optional[Plan] = None  # frontend output, computed once
     parent: object = field(repr=False, default=None)  # the caller's span
-
-    @property
-    def n_tokens(self) -> int:
-        return len(self.ids)
 
 
 class DynamicBatcher:
@@ -104,15 +106,15 @@ class DynamicBatcher:
         """Synthesize one sentence-chunk; resolves when its batch completes."""
         loop = asyncio.get_event_loop()
         # Frontend (normalize + G2P, possibly the neural-G2P decode for OOV words)
-        # runs off the event loop, and exactly once — the ids ride to the engine.
-        ids = await asyncio.to_thread(_frontend, self.tracer, text)
+        # runs off the event loop, and exactly once — the plan rides to the engine.
+        plan = await asyncio.to_thread(_frontend, self.tracer, self.engine, text, speaker)
         item = _Pending(
             text=text,
             speaker=speaker,
             exaggeration=exaggeration,
             future=loop.create_future(),
             enqueued_at=time.perf_counter_ns(),
-            ids=list(ids),
+            plan=plan,
             parent=self.tracer.current(),
         )
         await self._queue.put(item)
@@ -161,9 +163,7 @@ class DynamicBatcher:
                 # padded-token waste drops to the per-bucket minimum.
                 groups: Dict[int, List[_Pending]] = {}
                 for p in batch:
-                    groups.setdefault(
-                        pick_bucket(p.n_tokens, self.engine.ecfg.token_buckets), []
-                    ).append(p)
+                    groups.setdefault(p.plan.bucket, []).append(p)
                 if len(groups) > 1:
                     self.metrics["bucket_splits"] += 1
                 if admission:
@@ -182,8 +182,8 @@ class DynamicBatcher:
                                 [p.text for p in group],
                                 [p.speaker for p in group],
                                 [p.exaggeration for p in group],
-                                id_lists=[p.ids for p in group],
                                 pass_id=pass_id,
+                                plans=[p.plan for p in group],
                             )
                         for p, r in zip(group, results):
                             if not p.future.done():

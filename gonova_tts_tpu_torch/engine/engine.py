@@ -20,7 +20,16 @@ surface (`load`, `warmup`, `embed_voice`, `embed_voice_file`, `synthesize_batch`
     `acoustic_pallas` runs both acoustic stacks through the kernel for every family;
   * voice embedding: reference audio → 24 kHz → a fixed 10 s zero-padded analysis
     buffer → log-mel of `model.voice_n_mels` bands (the fused kernel on CUDA under
-    `engine.mel_pallas`) → speaker encoder.
+    `engine.mel_pallas`) → speaker encoder;
+  * F5-TTS (`model.acoustic_family` "f5", models/f5.py): a voice is a transcribed
+    prompt (`make_prompt`), a row's frame count L is known on the host
+    (`plan`), so a pass has no encode stage and no readback before its audio:
+    rows padded to a frame bucket of `engine.f5_frame_buckets` and a batch bucket,
+    `f5.sample` (one graph per stage, the Euler step's replayed `f5_nfe_steps`
+    times), then the vocoder over each row's generated frames. Each row's x_0 is a
+    function of the row alone (`f5.noise`), so its audio does not depend on its
+    batch-mates or its bucket. Streaming runs each sentence as a one-row pass and
+    yields its audio in chunks.
 
 PyTorch runs eagerly, so there is no compile cache. On a card with one replica,
 `warmup` captures every warmed shape as CUDA graphs (`models/graphs.py`) and a
@@ -44,6 +53,7 @@ import logging
 import threading
 import time
 from contextlib import ExitStack, contextmanager
+from dataclasses import dataclass
 from typing import Iterator, List, Optional, Sequence
 
 import numpy as np
@@ -55,7 +65,7 @@ from ..audio.resample import resample
 from .. import ops
 from ..config import Config
 from ..device import resolve_device
-from ..models import graphs
+from ..models import f5, graphs
 from ..models import params as params_mod
 from ..models import tts
 from ..text import batch_to_bucket, pick_bucket, segment_text, text_to_ids
@@ -64,6 +74,21 @@ from ..utils import Tracer, native, read_wav
 from . import multi
 
 logger = logging.getLogger("gonova_tts_tpu_torch.engine")
+
+NO_PROMPT = ("an F5 model speaks only in a voice it clones from a transcribed prompt: register one with "
+             "reference_text, or set voice_cloning.default_voice_text for the default voice")
+
+
+@dataclass(frozen=True)
+class Plan:
+    """A sentence as a pass takes it, planned on the host against its voice: `ids`
+    (token ids; F5: the character ids of transcript and sentence), `bucket` (the
+    token bucket; F5: the frame bucket of the row's L), by which the batcher groups
+    sentences into passes, and F5's `row`."""
+
+    ids: List[int]
+    bucket: int
+    row: Optional[f5.Row] = None
 
 
 class TTSEngine:
@@ -77,6 +102,7 @@ class TTSEngine:
             # (inference only; a trainer builds its own ModelConfig).
             self.mcfg = self.mcfg.model_copy(update={"acoustic_pallas": True})
         self.seed = seed
+        self.f5 = self.mcfg.acoustic_family == "f5"
         self.params: Optional[tts.TTS] = None
         self.replicas: List[tts.TTS] = []  # one per data-parallel device; [0] is self.params
         self._dp: Optional[multi.DataParallel] = None
@@ -107,6 +133,13 @@ class TTSEngine:
             "graph_passes": 0,  # passes whose graphed parts all replayed
             "eager_passes": 0,
             "graphs_captured": 0,
+            # F5 passes: Σ L of the rows, batch bucket x frame bucket, Σ prompt frames
+            # (ref_len) of the rows, and DiT row-evaluations of real rows (two guidance
+            # rows a row for each Euler step the sampler launched)
+            "f5_real_frames": 0,
+            "f5_padded_frames": 0,
+            "f5_prompt_frames": 0,
+            "f5_evaluations": 0,
         }
         self._vocode_shapes_seen: set = set()
         self._graphs: Optional[graphs.GraphSet] = None
@@ -164,6 +197,8 @@ class TTSEngine:
         raises; two or more serve through `multi.DataParallel`."""
         devices = multi.local_devices(self.device)
         n = self.ecfg.data_parallel or len(devices)
+        if n > 1 and self.f5:
+            raise ValueError("an F5 model serves one replica per engine (engine.data_parallel 1)")
         self._dp = multi.DataParallel(n, devices) if n > 1 else None
         return n
 
@@ -242,6 +277,8 @@ class TTSEngine:
         serving rounds it and every replica runs its shard's shape. With graphs (a
         card, one replica) each shape is captured instead, after `_prime`, and its
         readbacks read nothing yet; the engine captures nothing after warm-up."""
+        if self.f5:
+            return self._warmup_f5()
         dtype = self.compute_dtype
         # The device lock (without its span) keeps a health probe's launch out of a capture.
         with self._lock, torch.inference_mode():
@@ -332,6 +369,8 @@ class TTSEngine:
         the encoder runs in the engine's compute dtype."""
         if not self.is_loaded:
             raise RuntimeError("Engine not loaded. Call load() first")
+        if self.f5:
+            raise ValueError("an F5 model clones from a transcribed prompt (make_prompt), not an embedding")
         fused = self.ecfg.mel_pallas and self.device.type == "cuda"
         span = self.tracer.span
         with self._device_section(), span("engine.embed_voice"), torch.inference_mode():
@@ -355,6 +394,40 @@ class TTSEngine:
     def default_speaker(self) -> np.ndarray:
         return np.zeros((self.mcfg.speaker_dim,), np.float32)
 
+    def make_prompt(self, audio: np.ndarray, sr: int, transcript: str) -> f5.Prompt:
+        """A reference recording and its transcript → an F5 voice prompt."""
+        if not self.is_loaded:
+            raise RuntimeError("Engine not loaded. Call load() first")
+        with self._device_section(), self.tracer.span("engine.f5.prompt"), torch.inference_mode():
+            return f5.make_prompt(audio, sr, transcript, self.mcfg, self.device)
+
+    def voice_from_file(self, path: str, transcript: Optional[str] = None):
+        """A recording as the model's voice: its speaker embedding (the transcript
+        unused); an F5 model's prompt, which needs the transcript (ValueError)."""
+        if not self.f5:
+            return self.embed_voice_file(path)
+        if not (transcript or "").strip():
+            raise ValueError(NO_PROMPT)
+        audio, sr = read_wav(path)
+        return self.make_prompt(np.asarray(audio, np.float32), sr, transcript)
+
+    def plan(self, text: str, voice=None, to_ids=text_to_ids) -> Plan:
+        """A sentence against its voice (a speaker embedding or None; F5: a prompt,
+        which it needs: ValueError): its ids (by `to_ids`; F5: characters) and
+        bucket."""
+        if not self.f5:
+            ids = list(to_ids(text))
+            return Plan(ids, pick_bucket(len(ids), self.ecfg.token_buckets))
+        if voice is None:
+            raise ValueError(NO_PROMPT)
+        row = f5.plan(text, voice, self.mcfg)
+        return Plan(row.ids, self.f5_bucket(row.frames), row)
+
+    def f5_bucket(self, frames: int) -> int:
+        """The frame bucket of a row of `frames` frames: the smallest configured one
+        that holds it, else `frames` rounded up to a multiple of 256 (not warmed)."""
+        return next((b for b in self.ecfg.f5_frame_buckets if b >= frames), -(-frames // 256) * 256)
+
     # ------------------------------------------------------------ batch synthesis
 
     def synthesize_batch(
@@ -364,17 +437,24 @@ class TTSEngine:
         exaggerations: Optional[Sequence[float]] = None,
         id_lists: Optional[Sequence[Sequence[int]]] = None,
         pass_id: int = 0,
+        plans: Optional[Sequence[Plan]] = None,
     ) -> List[np.ndarray]:
         """One chunk of text per request in a single device pass; one float32
-        waveform per input. `id_lists` takes precomputed token ids; `pass_id`, the
-        id of the pass's `engine.pass` span, drawn by a caller that names the pass
-        in its own spans."""
+        waveform per input. `id_lists` takes precomputed token ids, `plans` the
+        texts' `plan`s; `pass_id`, the id of the pass's `engine.pass` span, drawn by
+        a caller that names the pass in its own spans. An F5 model reads `speakers`
+        as prompts (`make_prompt`)."""
         if not self.is_loaded:
             raise RuntimeError("Engine not loaded. Call load() first")
         if not texts:
             return []
+        if self.f5:
+            plans = plans or [self.plan(t, v) for t, v in zip(texts, speakers or [None] * len(texts))]
+            return self._synthesize_f5([p.row for p in plans], pass_id)
         t0 = time.time()
         b = len(texts)
+        if plans is not None:
+            id_lists = [p.ids for p in plans]
         if id_lists is None:
             id_lists = [text_to_ids(t) for t in texts]
         elif len(id_lists) != b:
@@ -478,6 +558,100 @@ class TTSEngine:
             self.stats["vocode_frames_worstcase"] += int(t_full * batch_bucket)
         return host, total_frames * self.hop, fb
 
+    # ------------------------------------------------------------ F5 passes
+
+    def _f5_arrays(self, rows: Sequence[f5.Row], batch: int, bucket: int):
+        """A pass's host inputs (`f5.sample`'s, then the output gain): rows past the
+        given ones are filler with one frame."""
+        m = self.mcfg.n_mels
+        ids1 = np.zeros((batch, bucket), np.int64)
+        cond = np.zeros((batch, bucket, m), np.float32)
+        x0 = np.zeros((batch, bucket, m), np.float32)
+        lens = np.ones((batch,), np.int64)
+        prompt_frames = np.zeros((batch,), np.int64)
+        ref_len = np.zeros((batch,), np.int64)
+        gain = np.ones((batch,), np.float32)
+        for i, r in enumerate(rows):
+            n = min(len(r.ids), r.frames)
+            ids1[i, :n] = np.asarray(r.ids[:n]) + 1
+            cond[i, : r.prompt.frames] = r.prompt.mel
+            x0[i, : r.frames] = f5.noise(r.ids, r.frames, m)
+            lens[i], prompt_frames[i], ref_len[i], gain[i] = r.frames, r.prompt.frames, r.prompt.ref_len, r.prompt.gain
+        return ids1, cond, x0, lens, prompt_frames, ref_len, gain
+
+    def _f5_pass(self, arrays, on_step=None) -> np.ndarray:
+        """The device work of one F5 pass: the staged inputs (or fresh tensors for an
+        unwarmed shape), the sampler (`on_step` called as each step is launched), the
+        vocoder, the PCM16 readback."""
+        dtype, span = self.compute_dtype, self.tracer.span
+        if arrays[0].shape in self._staged:
+            ids1, cond, x0, lens, prompt_frames, ref_len, gain = self._stage(arrays)
+        else:
+            ids1, cond, x0, lens, prompt_frames, ref_len, gain = (torch.as_tensor(a, device=self.device) for a in arrays)
+        with span("engine.f5.sample"):
+            mel = f5.sample(self.params["acoustic"], ids1, cond, x0, lens, prompt_frames, ref_len, self.mcfg, dtype,
+                            on_step)
+        with span("engine.f5.vocode"):
+            wav = tts.vocode(self.params, mel, self.mcfg, dtype)
+        return self._readback(self._pack(wav * gain[:, None]))
+
+    def _synthesize_f5(self, rows: Sequence[f5.Row], pass_id: int) -> List[np.ndarray]:
+        t0 = time.time()
+        b = len(rows)
+        bucket = max(self.f5_bucket(r.frames) for r in rows)
+        batch_bucket = max(b, pick_bucket(b, self.ecfg.batch_buckets))
+        arrays = self._f5_arrays(rows, batch_bucket, bucket)
+        real = sum(r.frames for r in rows)
+        steps = []  # one entry a step the sampler launched
+        span = self.tracer.span
+        with ExitStack() as open_spans:
+            with self._device_section(), torch.inference_mode():
+                pass_span = open_spans.enter_context(span("engine.pass", id=pass_id))
+                with graphs.active(self._graphs) as graph_set:
+                    host = self._f5_pass(arrays, lambda: steps.append(1))
+                graphed = graph_set is not None and graph_set.eager == 0 and graph_set.replayed > 0
+                if pass_span:
+                    pass_span.set(batch=b, batch_bucket=batch_bucket, frame_bucket=bucket, real_frames=real,
+                                  graphed=graphed)
+                open_spans.enter_context(span("engine.unpack"))
+                audio = self._to_f32(host)
+            results = [audio[i, : (r.frames - r.prompt.ref_len) * self.hop].astype(np.float32)
+                       for i, r in enumerate(rows)]
+        with self._stats_lock:
+            st = self.stats
+            st["batches"] += 1
+            st["batched_requests"] += b
+            st["syntheses"] += b
+            st["total_latency"] += time.time() - t0
+            st["f5_real_frames"] += real
+            st["f5_padded_frames"] += batch_bucket * bucket
+            st["f5_prompt_frames"] += sum(r.prompt.ref_len for r in rows)
+            st["f5_evaluations"] += 2 * b * len(steps)
+            st["graph_passes" if graphed else "eager_passes"] += 1
+        return results
+
+    def _warmup_f5(self) -> None:
+        """Each warm-up shape (batch, frame bucket) once: with graphs, after an eager
+        pass at batch 1 at the smallest and the largest bucket (which builds the
+        weights' cast and the constants on the capture stream), captured instead."""
+        shapes = [(b, self.f5_bucket(fb)) for b, fb in self.ecfg.warmup_shapes]
+        with self._lock, torch.inference_mode():
+            if self._graphs is not None and shapes:
+                ends = sorted({fb for _, fb in shapes})
+                with self._graphs.side_stream():
+                    for fb in {ends[0], ends[-1]}:
+                        self._f5_pass(self._f5_arrays([], 1, fb))
+            with graphs.active(self._graphs, capture=True):
+                for batch, bucket in shapes:
+                    t0 = time.time()
+                    arrays = self._f5_arrays([], batch, bucket)
+                    if self._graphs is not None and arrays[0].shape not in self._staged:
+                        self._make_staged(arrays)
+                    self._f5_pass(arrays)
+                    self.stats["compiles"] += 1
+                    logger.info("warmup batch %d frames %d: %.2f s", batch, bucket, time.time() - t0)
+            self.stats["graphs_captured"] = len(self._graphs or ())
+
     # ------------------------------------------------------------ streaming synthesis
 
     def synthesize_stream(
@@ -489,9 +663,10 @@ class TTSEngine:
             raise RuntimeError("Engine not loaded. Call load() first")
         t0 = time.time()
         first = True
+        stream = self._stream_f5 if self.f5 else self._stream_sentence
         try:
             for sentence in segment_text(text):
-                for chunk in self._stream_sentence(sentence, speaker, exaggeration):
+                for chunk in stream(sentence, speaker, exaggeration):
                     if first:
                         with self._stats_lock:
                             self.stats["first_chunk_latency"] += time.time() - t0
@@ -504,6 +679,14 @@ class TTSEngine:
             with self._stats_lock:
                 self.stats["errors"] += 1
             raise
+
+    def _stream_f5(self, sentence: str, prompt: Optional[f5.Prompt], exaggeration: float) -> Iterator[np.ndarray]:
+        """An F5 sentence makes its mel all at once: one one-row pass, its audio in
+        chunks of `stream_chunk_frames` frames."""
+        audio = self.synthesize_batch([sentence], [prompt])[0]
+        step = self.ecfg.stream_chunk_frames * self.hop
+        for i in range(0, len(audio), step):
+            yield audio[i : i + step]
 
     def _stream_sentence(
         self, sentence: str, speaker: Optional[np.ndarray], exaggeration: float

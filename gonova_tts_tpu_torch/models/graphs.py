@@ -28,6 +28,14 @@ a time and are read back before the next. The functions are still called as befo
 from the same callers and with the same shapes; only their body is replayed instead
 of launched op by op.
 
+A set keeps at most `QUEUED` of its replays unfinished on the card: before it
+launches another it waits for the oldest to end. Launched back to back, long runs of
+replays (F5's 32 Euler steps a pass) fill the card's command buffer and leave the
+launching thread blocked inside `cudaGraphLaunch`; a torch.profiler stopped on another
+thread meanwhile deadlocked the process. The wait costs the card one launch's latency
+a replay, against replays of milliseconds; a pass that reads its results back waits
+for its last replay anyway.
+
 What a body must not do under capture: copy from pageable host memory or
 synchronise. Host-side constants are therefore built once and kept on the device
 (`layers.device_constant`), and the engine runs a few eager passes at batch 1
@@ -36,6 +44,7 @@ before it captures (`TTSEngine._prime`), which fill every other host-side memo.
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import threading
 from typing import Callable, Dict, Optional, Sequence
@@ -46,6 +55,7 @@ from .. import ops
 from ..utils import prof
 
 _LOCAL = threading.local()
+QUEUED = 1  # the most replays of a set unfinished on the card at once
 
 
 class GraphSet:
@@ -61,6 +71,7 @@ class GraphSet:
         self.replayed = self.eager = 0
         self._pools: Dict[str, tuple] = {}
         self._stream = torch.cuda.Stream(device)
+        self._queued: collections.deque = collections.deque()  # an event after each unfinished replay
 
     def __len__(self) -> int:
         return len(self.graphs)
@@ -87,6 +98,20 @@ class GraphSet:
                 graph.capture_end()
         torch.cuda.current_stream(self.device).wait_stream(self._stream)
         return graph, out
+
+    def replay(self, name: str, graph) -> None:
+        """Launch `graph` once fewer than `QUEUED` replays of this set are unfinished."""
+        while len(self._queued) >= QUEUED:
+            self._queued.popleft().synchronize()
+        with _launch_range(name):
+            graph.replay()
+        self._queued.append(self._mark())
+
+    def _mark(self):
+        """An event recorded on the current stream after what it has launched."""
+        done = torch.cuda.Event()
+        done.record()
+        return done
 
 
 @contextlib.contextmanager
@@ -159,8 +184,7 @@ def run(name: str, fn: Callable, params, tensors: Sequence[torch.Tensor], *stati
         for mine, given in zip(inputs, tensors):
             if mine.data_ptr() != given.data_ptr():
                 mine.copy_(given)
-        with _launch_range(name):
-            graph.replay()
+        graphs.replay(name, graph)
         _count(launches, 1)
         graphs.replayed += 1
     return _fresh(out)

@@ -15,7 +15,7 @@ from typing import Callable, Dict
 import torch
 
 from ..config import ModelConfig
-from . import acoustic, bigvgan, speaker, tts, vocoder, vocos
+from . import acoustic, bigvgan, f5, speaker, tts, vocoder, vocos
 
 
 @dataclass(frozen=True)
@@ -63,6 +63,15 @@ register(
         description="FastPitch-class non-AR acoustic model (phonemes+speaker → mel)",
         init=_acoustic_init,
         forward=acoustic.forward,
+    )
+)
+register(
+    ModelFamily(
+        name="f5tts",
+        kind="acoustic",
+        description="F5-TTS v1 DiT (transcribed prompt + characters → mel by guided flow matching)",
+        init=f5.init,
+        forward=f5.sample,
     )
 )
 register(

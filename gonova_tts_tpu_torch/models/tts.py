@@ -6,7 +6,10 @@ two-stage halves; `acoustic_mel` and `vocode` are the streaming stages;
 `embed_speaker` is the voice-cloning stage (reference log-mel → embedding).
 The vocoder is NovaVocos (`vocoder_family="vocos"`), the HiFi-GAN generator
 (`"hifigan"`, served in the lane-folded layout unless `hifigan_folded` is off) or
-BigVGAN-v2's generator (`"bigvgan"`).
+BigVGAN-v2's generator (`"bigvgan"`). With `acoustic_family="f5"` the acoustic
+model is F5-TTS's DiT (`models/f5.py`), which clones from a transcribed prompt and
+has no speaker encoder; its pass is `f5.sample`, then `vocode` over the generated
+frames.
 """
 
 from __future__ import annotations
@@ -16,7 +19,7 @@ from typing import Dict, Mapping, Optional
 import torch
 
 from ..config import ModelConfig
-from . import acoustic, aligner, bigvgan, speaker, vocoder, vocoder_folded, vocos
+from . import acoustic, aligner, bigvgan, f5, speaker, vocoder, vocoder_folded, vocos
 from .layers import Tree
 
 
@@ -47,13 +50,18 @@ class TTS(Tree):
     """`{"acoustic", "vocoder", "speaker"}` — the JAX parameter tree as one module.
     A fresh one is seeded from `g` (defaults to seed 0). `with_aligner=True` adds
     the MAS aligner subtree (`models/aligner.py`), which training from raw (text,
-    audio) pairs needs and serving never runs."""
+    audio) pairs needs and serving never runs. An F5 model (`acoustic_family`
+    "f5") is `{"acoustic": the DiT, "vocoder"}`."""
 
     def __init__(self, cfg: ModelConfig, g: Optional[torch.Generator] = None, with_aligner: bool = False):
         super().__init__()
         if g is None:
             g = torch.Generator().manual_seed(0)
         self.cfg = cfg
+        if cfg.acoustic_family == "f5":
+            self.acoustic = f5.init(g, cfg)
+            self.vocoder = _vocoder_mod(cfg).init(g, cfg)
+            return
         self.acoustic = acoustic.AcousticModel(cfg, g)
         self.vocoder = _vocoder_mod(cfg).init(g, cfg)
         self.speaker = speaker.init(g, cfg)

@@ -224,7 +224,8 @@ class TTSService:
             loop = asyncio.get_event_loop()
             try:
                 self._default_speaker = await loop.run_in_executor(
-                    None, self.synthesizer.engine.embed_voice_file, path
+                    None, self.synthesizer.engine.voice_from_file, path,
+                    self.config.voice_cloning.default_voice_text,
                 )
                 logger.info("default_voice_loaded", path=path)
             except Exception as e:  # noqa: BLE001
@@ -234,9 +235,11 @@ class TTSService:
 
     # ------------------------------------------------------------ synthesis workers
 
-    async def _resolve_speaker(self, voice_id: str) -> Optional[np.ndarray]:
-        """voice_id → speaker embedding; unknown ids warn + fall back to default
-        (reference behavior, server.py:128-138)."""
+    async def _resolve_speaker(self, voice_id: str):
+        """voice_id → the engine's voice (`voice_from_file`: a speaker embedding, or
+        an F5 model's prompt from the recording and its registered transcript);
+        unknown ids warn + fall back to default (reference behavior,
+        server.py:128-138)."""
         if not voice_id or voice_id == "default":
             return self._default_speaker
         # Cache under the SANITIZED id — the voice manager resolves by it, so two
@@ -254,7 +257,9 @@ class TTSService:
         if path is None:
             logger.warning("voice_not_found", voice_id=voice_id)
             return self._default_speaker
-        emb = await asyncio.to_thread(self.synthesizer.engine.embed_voice_file, path)
+        emb = await asyncio.to_thread(
+            self.synthesizer.engine.voice_from_file, path, self.voice_manager.get_reference_text(voice_id)
+        )
         if self.voice_manager.generation_of(key) == gen:
             self.voice_embeddings.put(key, emb)
         return emb
@@ -661,12 +666,9 @@ class TTSService:
             if voice_id and reference_audio:
                 span = self.tracer.begin("service.register_voice", request=(conn_id, None))
                 try:
-                    await self.voice_manager.register_voice(
-                        voice_id=voice_id,
-                        reference_audio_b64=reference_audio,
-                        description=data.get("description", ""),
+                    await self.register_voice(
+                        voice_id, reference_audio, data.get("description", ""), data.get("reference_text"),
                     )
-                    self.voice_embeddings.invalidate(sanitize_voice_id(voice_id))
                     await ws.send_json({"type": "voice_registered", "voice_id": voice_id})
                 except Exception as e:  # noqa: BLE001
                     await ws.send_json(
@@ -692,6 +694,19 @@ class TTSService:
             # connection; a confirmation is sent so clients can resynchronize.
             self._cancel_generations[conn_id] = self._cancel_generations.get(conn_id, 0) + 1
             await ws.send_json({"type": "cancelled"})
+
+    async def register_voice(self, voice_id: str, reference_audio_b64: str, description: str = "",
+                             reference_text: Optional[str] = None) -> str:
+        """Validate and store a cloning reference (voice_manager), with its transcript
+        where one is given; an F5 model needs the transcript. Raises ValueError."""
+        if self.synthesizer.engine.f5 and not (reference_text or "").strip():
+            raise ValueError("reference_text is required: the F5 model clones from a transcribed prompt")
+        path = await self.voice_manager.register_voice(
+            voice_id=voice_id, reference_audio_b64=reference_audio_b64, description=description,
+            reference_text=reference_text,
+        )
+        self.voice_embeddings.invalidate(sanitize_voice_id(voice_id))
+        return path
 
     # ------------------------------------------------------------ REST synthesis
 
@@ -750,7 +765,8 @@ class TTSService:
                 lines.append(f"gonova_tts_batcher_{key} {value}")
         stats = self.synthesizer.engine.stats
         for key in ("padded_tokens", "real_tokens", "vocode_frames_executed", "truncated_sentences",
-                    "graph_passes", "eager_passes", "graphs_captured"):
+                    "graph_passes", "eager_passes", "graphs_captured", "f5_real_frames", "f5_padded_frames",
+                    "f5_prompt_frames", "f5_evaluations"):
             lines.append(f"# TYPE gonova_tts_engine_{key} {'gauge' if key == 'graphs_captured' else 'counter'}")
             lines.append(f"gonova_tts_engine_{key} {stats[key]}")
         for kernel, n in sorted(ops.launch_counts().items()):
@@ -850,11 +866,14 @@ async def rest_synthesize(request):
             },
             status=400,
         )
-    audio = await svc.synthesize_full(
-        text,
-        voice_id=data.get("voice_id", "default"),
-        exaggeration=data.get("exaggeration", svc.config.synthesis.default_exaggeration),
-    )
+    try:
+        audio = await svc.synthesize_full(
+            text,
+            voice_id=data.get("voice_id", "default"),
+            exaggeration=data.get("exaggeration", svc.config.synthesis.default_exaggeration),
+        )
+    except ValueError as exc:  # an F5 model with no voice to speak in
+        return web.json_response({"error": str(exc)}, status=400)
     if fmt == "pcm":
         return web.Response(
             body=audio.astype(np.float32).tobytes(),

@@ -7,7 +7,9 @@ Spec (reference: services/tts/core/voice_manager.py):
     peak < 0.99 (:230-231), p90/p10 amplitude ratio ≥ 5 (:234-237);
   * lookup memory → disk → None (:153-182); list via disk glob (:184-206);
   * LRU eviction of the oldest half beyond max_cached (:242-260);
-  * stats: registrations / cache_hits / cache_misses + totals (:262-267).
+  * stats: registrations / cache_hits / cache_misses + totals (:262-267);
+  * a voice's transcript, where registration gives one, persists beside its WAV as
+    voices/<id>.txt (a model that clones from a transcribed prompt reads it).
 
 Uses the in-repo WAV codec (utils/wavio.py) — soundfile is not a dependency.
 """
@@ -86,10 +88,12 @@ class VoiceManager:
         logger.info("voice_manager_initialized", cache_dir=str(cache_dir))
 
     async def register_voice(
-        self, voice_id: str, reference_audio_b64: str, description: str = ""
+        self, voice_id: str, reference_audio_b64: str, description: str = "",
+        reference_text: Optional[str] = None,
     ) -> str:
-        """Validate + persist a cloning reference. Returns the stored WAV path.
-        Raises ValueError on bad id, undecodable audio, or failed quality gate."""
+        """Validate + persist a cloning reference (and its transcript, if given).
+        Returns the stored WAV path. Raises ValueError on bad id, undecodable audio,
+        or failed quality gate."""
         safe_id = sanitize_voice_id(voice_id)
 
         def _decode_validate_persist():
@@ -117,6 +121,13 @@ class VoiceManager:
             # file, never a truncated in-place rewrite.
             tmp = voice_path.with_suffix(".wav.tmp")
             tmp.write_bytes(audio_bytes)
+            text_path = voice_path.with_suffix(".txt")
+            if reference_text:
+                tmp_text = voice_path.with_suffix(".txt.tmp")
+                tmp_text.write_text(reference_text, encoding="utf-8")
+                os.replace(tmp_text, text_path)
+            elif text_path.exists():
+                text_path.unlink()  # a transcript of the old recording
             os.replace(tmp, voice_path)
             return voice_path, audio, sr
 
@@ -167,6 +178,14 @@ class VoiceManager:
         self.stats["cache_misses"] += 1
         logger.warning("voice_not_found", voice_id=voice_id)
         return None
+
+    def get_reference_text(self, voice_id: str) -> Optional[str]:
+        """The transcript registered with a voice, or None."""
+        try:
+            path = self.cache_dir / f"{sanitize_voice_id(voice_id)}.txt"
+        except ValueError:
+            return None
+        return path.read_text(encoding="utf-8") if path.exists() else None
 
     def list_voices(self) -> list:
         voices = []

@@ -258,8 +258,11 @@ def suite_engines(tmp_path_factory):
     jcfg = made[0]
     cfg = bench_suite.suite_config(True, "cpu")
     assert cfg.model.speaker_n_mels is None  # the port's field alone: None reads n_mels
-    assert cfg.model.model_dump(exclude={"device", "speaker_n_mels"}) == jcfg.model.model_dump(exclude={"device"})
-    ours, theirs = cfg.engine.model_dump(), jcfg.engine.model_dump()
+    # the F5 family's fields are the port's alone too (acoustic_family "nova" by default)
+    port_only = {"speaker_n_mels", "acoustic_family"} | {k for k in type(cfg.model).model_fields if k.startswith("f5_")}
+    assert cfg.model.acoustic_family == "nova"
+    assert cfg.model.model_dump(exclude={"device"} | port_only) == jcfg.model.model_dump(exclude={"device"})
+    ours, theirs = cfg.engine.model_dump(exclude={"f5_frame_buckets"}), jcfg.engine.model_dump()
     assert ours == {k: theirs[k] for k in ours}
     # The port serves one dispatch: the JAX engine's mode switch and its threshold have no field.
     assert len(set(theirs) - set(ours)) == 2 and all(k.startswith("two_stage_") for k in set(theirs) - set(ours))

@@ -609,7 +609,10 @@ def test_speaker_n_mels_none_leaves_the_config_and_the_other_families():
 
     cfg = ModelConfig()
     assert cfg.speaker_n_mels is None and cfg.voice_n_mels == cfg.n_mels == 80
-    assert cfg.model_dump(exclude={"device", "speaker_n_mels"}) == JModelConfig().model_dump(exclude={"device"})
+    # the port's own fields: the voice path's bands, and the F5 family's (acoustic_family "nova" by default)
+    port_only = {"speaker_n_mels", "acoustic_family"} | {k for k in ModelConfig.model_fields if k.startswith("f5_")}
+    assert cfg.acoustic_family == "nova"
+    assert cfg.model_dump(exclude={"device"} | port_only) == JModelConfig().model_dump(exclude={"device"})
     small = dict(d_model=32, n_heads=2, d_ff=64, encoder_layers=1, decoder_layers=1, speaker_dim=32,
                  vocos_dim=32, vocos_ff=64, vocos_layers=1, upsample_initial_channel=32)
     for family in ("vocos", "hifigan"):

@@ -106,10 +106,11 @@ def test_info_has_the_jax_clis_keys(capsys):
     assert ours["jax_backend"] == ("cuda" if torch.cuda.is_available() else "cpu")
     assert ours["torch_version"] == torch.__version__
     assert set(theirs["model_families"]) == {"novaspeech", "novagan", "novavocos", "novaspk", "novatts"}
-    # BigVGAN-v2 is the port's alone: the JAX package has no such vocoder.
-    assert set(ours["model_families"]) == set(theirs["model_families"]) | {"bigvgan"}
-    assert set(ours["model_families"]["bigvgan"]) == {"kind", "description"}
+    # BigVGAN-v2 and F5-TTS are the port's alone: the JAX package has no such models.
+    assert set(ours["model_families"]) == set(theirs["model_families"]) | {"bigvgan", "f5tts"}
+    assert set(ours["model_families"]["bigvgan"]) == set(ours["model_families"]["f5tts"]) == {"kind", "description"}
     assert ours["model_families"]["bigvgan"]["kind"] == "vocoder"
+    assert ours["model_families"]["f5tts"]["kind"] == "acoustic"
     for name, family in theirs["model_families"].items():
         assert set(ours["model_families"][name]) == set(family) == {"kind", "description"}
         assert ours["model_families"][name]["kind"] == family["kind"]

@@ -917,3 +917,86 @@ def test_a_replayed_bigvgan_forward_runs_channels_last_end_to_end(setup):
     assert torch.equal(got, want)
     copies = [e.name for e in eager.events() if e.name in ("aten::_to_copy", "aten::clone")]
     assert copies.count("aten::_to_copy") == 2 and "aten::clone" not in copies, copies
+
+
+# ---------------------------------------------------------------- F5-TTS v1 at published widths
+
+# One DiT evaluation in bf16 against the float32 reference (TF32 off): bf16 products
+# and activations through 22 blocks move the guided velocity (|v| ~3 on average at
+# the seeded weights) by ~1e-2 on average, ~0.2 at most.
+F5_VELOCITY_MEAN = 0.05
+F5_VELOCITY_MAX = 1.0
+
+
+@pytest.fixture(scope="module")
+def f5_engine(setup, tmp_path_factory):
+    """An engine serving the published F5TTS_v1_Base widths from seeded weights (the
+    benchmark's generator), graphs captured at (2, 1536), and prompts of three of the
+    benchmark's recordings."""
+    from gonova_tts_tpu_torch.config import Config, EngineConfig
+    from gonova_tts_tpu_torch.engine import TTSEngine
+    from tts_bench import prompts
+    from tts_bench.reference import audio as ref_audio
+    from tts_bench.voices import Voice
+    from tts_bench.weights import f5 as weights
+
+    cfg = Config()
+    cfg.model = ModelConfig(acoustic_family="f5", n_mels=100, vocos_head="polar", device="cuda")
+    cfg.engine = EngineConfig(f5_frame_buckets=[1536, 4096], batch_buckets=[1, 2, 4], warmup_shapes=[[2, 1536]])
+    path = str(tmp_path_factory.mktemp("f5") / "f5.npz")
+    np.savez(path, **weights.make(cfg.model.model_dump(), 7, "cuda"))
+    cfg.model.model_path = path
+    eng = TTSEngine(cfg)
+    eng.load()
+    voices = [Voice(7, i, sr) for i, sr in enumerate([24000, 44100])]
+    ps = [eng.make_prompt(*ref_audio.read_wav(v.wav), prompts.transcript(v.wav)) for v in voices]
+    return eng, ps, path
+
+
+F5_SENTENCES = ["The harbor was quiet when the boats came home.", "She opened the letter, and read it twice.",
+                "Nobody expected the rain to stop so soon!", "A short one."]
+
+
+@pytest.mark.gpu
+def test_f5_one_evaluation_matches_the_reference_at_published_widths(f5_engine):
+    """B = 4, L = 1,536: the port's bf16 DiT (conditioning, time embedding, 22
+    blocks, guidance) against reference/f5.py's f32 DiT, each row alone at its L."""
+    from gonova_tts_tpu_torch.models import f5
+    from tts_bench.reference import f5 as reference
+    from tts_bench.reference.model import load_tree
+
+    eng, ps, path = f5_engine
+    rows = [eng.plan(s, ps[i % 2]).row for i, s in enumerate(F5_SENTENCES)]
+    assert max(r.frames for r in rows) <= 1536
+    ids1, cond, x0, lens, _, _, _ = (torch.as_tensor(a, device="cuda") for a in eng._f5_arrays(rows, 4, 1536))
+    t = torch.tensor([0.3], device="cuda")
+    with torch.inference_mode():
+        fixed = f5.condition(eng.params["acoustic"], ids1, cond, lens, eng.mcfg, torch.bfloat16)
+        got = f5.velocity(eng.params["acoustic"], x0, fixed, lens, t, eng.mcfg, torch.bfloat16)
+        tree, _ = load_tree(path, "cuda")
+        ref = reference.Reference(tree, eng.mcfg.model_dump(), "cuda")
+        for i, r in enumerate(rows):
+            text = ref.dit.text(torch.as_tensor(r.ids, device="cuda"), r.frames)
+            want = ref.dit.velocity(x0[i, : r.frames], cond[i, : r.frames], text, t)
+            err = (got[i, : r.frames] - want).abs()
+            assert float(want.abs().mean()) > 0.5  # the adaLN gates and proj_out are drawn, not zero
+            assert float(err.mean()) < F5_VELOCITY_MEAN and float(err.max()) < F5_VELOCITY_MAX, i
+
+
+@pytest.mark.gpu
+def test_f5_a_captured_pass_replays_the_eager_audio(f5_engine):
+    eng, ps, _ = f5_engine
+    assert eng.get_stats()["graphs_captured"] == 4  # conditioning, step, gather, vocoder
+    texts = F5_SENTENCES[:2]
+    before = eng.get_stats()["graph_passes"]
+    got = eng.synthesize_batch(texts, ps)
+    graphs_ = eng._graphs
+    eng._graphs = None
+    try:
+        want = eng.synthesize_batch(texts, ps)
+    finally:
+        eng._graphs = graphs_
+    assert eng.get_stats()["graph_passes"] == before + 1
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and np.array_equal(g, w)
+        assert float(np.sqrt(np.mean(g ** 2))) > 0.01

@@ -9,6 +9,7 @@ card's own tests are in `test_torch_cuda.py`.
 """
 
 import asyncio
+import collections
 
 import numpy as np
 import pytest
@@ -61,12 +62,28 @@ class _Replay:
         self.replays += 1
 
 
+class _Done:
+    """A stand-in for the event recorded after a replay: a replay on the CPU has
+    ended when it returns. `log` gets ("wait", n) for each wait on the n-th."""
+
+    def __init__(self, log, n):
+        self.log, self.n = log, n
+
+    def synchronize(self):
+        self.log.append(("wait", self.n))
+
+
 class ReplayGraphs(graphs.GraphSet):
     def __init__(self, device):  # no CUDA pool or stream
         self.device, self.graphs = device, {}
         self.capturing = self.open = False
         self.replayed = self.eager = 0
         self.side_streams = 0
+        self._queued, self.log = collections.deque(), []
+
+    def _mark(self):
+        self.log.append(("replay", len([e for e in self.log if e[0] == "replay"])))
+        return _Done(self.log, self.log[-1][1])
 
     def side_stream(self):
         self.side_streams += 1
@@ -354,6 +371,26 @@ def test_replays_count_the_hand_kernels_launches_and_captures_do_not():
             with graphs.active(gs):
                 graphs.run("f", body, None, ())
     assert counter.count == start + 6 and gs.replayed == 1
+
+
+@pytest.mark.parametrize("queued", [1, 3])
+def test_a_set_waits_for_its_oldest_unfinished_replay_before_it_launches_more(queued, monkeypatch):
+    """At most `graphs.QUEUED` replays of a set are unfinished: a long run of replays
+    (F5's Euler steps) never fills the card's command buffer, where a launch blocks."""
+    monkeypatch.setattr(graphs, "QUEUED", queued)
+    gs = SilentGraphs(torch.device("cpu"))
+    with torch.no_grad():
+        with graphs.active(gs, capture=True):
+            graphs.run("f", lambda: torch.zeros(1), None, ())
+        with graphs.active(gs):
+            for _ in range(5):
+                graphs.run("f", lambda: torch.zeros(1), None, ())
+    want = []
+    for k in range(5):
+        if k >= queued:
+            want.append(("wait", k - queued))
+        want.append(("replay", k))
+    assert gs.log == want and len(gs._queued) == queued
 
 
 def test_a_profiler_that_starts_during_a_replay_fails_no_pass(pair):

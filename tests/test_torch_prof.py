@@ -26,7 +26,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from gonova_tts_tpu_torch.config import Config, EngineConfig, ModelConfig
-from gonova_tts_tpu_torch.engine import DynamicBatcher
+from gonova_tts_tpu_torch.engine import DynamicBatcher, TTSEngine
 from gonova_tts_tpu_torch.service.memory_socket import MemorySocket
 from gonova_tts_tpu_torch.service.server import TTSService
 from gonova_tts_tpu_torch.utils import Tracer, prof, write_wav
@@ -295,13 +295,16 @@ def test_prometheus_exposition_carries_the_span_histograms(on):
 
 
 class _PassEngine:
+    f5 = False
+    plan = TTSEngine.plan
+
     def __init__(self):
         self.ecfg = EngineConfig(token_buckets=[32, 64, 128], max_batch=8, batch_window_ms=5.0)
         self.tracer = Tracer(on=True)
 
-    def synthesize_batch(self, texts, speakers=None, exaggerations=None, id_lists=None, pass_id=0):
+    def synthesize_batch(self, texts, speakers=None, exaggerations=None, pass_id=0, plans=None):
         with self.tracer.span("engine.pass", id=pass_id, batch=len(texts)):
-            return [np.zeros(len(ids), np.float32) for ids in id_lists]
+            return [np.zeros(len(p.ids), np.float32) for p in plans]
 
 
 def test_batcher_waits_name_their_pass_and_bucket():

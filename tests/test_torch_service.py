@@ -12,6 +12,7 @@ held equal. The batcher cases drive a stub engine with explicit admission window
 
 import asyncio
 import base64
+import dataclasses
 import io
 import os
 import struct
@@ -23,7 +24,7 @@ import torch
 from gonova_tts_tpu.utils import native as jnative
 from gonova_tts_tpu.utils import wavio as jwavio
 from gonova_tts_tpu_torch.config import Config, EngineConfig, ModelConfig
-from gonova_tts_tpu_torch.engine import DynamicBatcher, VoiceEmbeddingCache
+from gonova_tts_tpu_torch.engine import DynamicBatcher, TTSEngine, VoiceEmbeddingCache
 from gonova_tts_tpu_torch.service import (
     RateLimiter,
     StreamingSynthesizer,
@@ -628,7 +629,11 @@ def test_voice_cache_lru():
 
 
 class StubEngine:
-    """Records each device pass; a waveform per text whose length is the token count."""
+    """Records each device pass; a waveform per text whose length is the token count.
+    Sentences are planned as the nova engine plans them."""
+
+    f5 = False
+    plan = TTSEngine.plan
 
     def __init__(self, fail_on=None):
         self.ecfg = EngineConfig(token_buckets=[32, 64, 128], max_batch=8, batch_window_ms=5.0)
@@ -636,7 +641,8 @@ class StubEngine:
         self.passes = []
         self.fail_on = fail_on
 
-    def synthesize_batch(self, texts, speakers=None, exaggerations=None, id_lists=None, pass_id=0):
+    def synthesize_batch(self, texts, speakers=None, exaggerations=None, pass_id=0, plans=None):
+        id_lists = [p.ids for p in plans]
         self.passes.append({"texts": list(texts), "speakers": speakers, "ids": id_lists, "pass_id": pass_id})
         if self.fail_on is not None and any(self.fail_on in t for t in texts):
             raise ValueError("device pass failed")
@@ -744,13 +750,13 @@ def test_dynamic_batcher_worker_survives_assembly_error():
     async def run():
         batcher = DynamicBatcher(engine, max_batch=1, window_ms=HOUR_MS)
         await batcher.start()
-        good = engine.ecfg.token_buckets
-        engine.ecfg.token_buckets = []  # bucket lookup fails outside the per-group guard
+        # an unhashable bucket: grouping fails outside the per-group guard
+        engine.plan = lambda *a: dataclasses.replace(TTSEngine.plan(engine, *a), bucket=[])
         try:
             with pytest.raises(Exception):
                 await asyncio.wait_for(batcher.submit("Boom."), 10)
         finally:
-            engine.ecfg.token_buckets = good
+            del engine.plan
         out = await asyncio.wait_for(batcher.submit("Still alive."), 10)
         await batcher.stop()
         return out
